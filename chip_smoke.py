@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (pob_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # from the repo root
+    python3 chip_smoke.py                  # from the repo root
+    python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 breakdown
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
-     pob_tpu_torch/csrc (one nvcc per source, in parallel).
+     pob_tpu_torch/csrc (one nvcc per source, in parallel) and print each
+     kernel's registers and spill bytes as ptxas reports them.
   2. every kernel (K1 field ops, K2 NTT, K3 Pippenger MSM, K4 fixed-base) is
      held against its plain PyTorch version on the same card tensors, with
      tolerance 0 (integers mod p; points compared as affine points): K1 and
-     K2 at the h stage's shapes, K3 and K4 on the edge cases (infinity,
-     doubling, cancel, zero scalars). Both versions are timed with CUDA
-     events.
+     K2 at the h stage's shapes (K2 also at k = 1, 5, 11, 13, with and
+     without the folded bit reversal), K3 and K4 on the edge cases
+     (infinity, doubling, cancel, zero scalars; for K3 also the digits
+     0x7F, 0x80, 0xFF, r - 1 and an all-ones batch of 3 bucket-sum levels).
+     Both versions are timed with CUDA events.
   3. the main path at full width: build_spend_cs, setup at domain 2^18, a
      batch-16 Spend witness on the card, one warm-up and two timed
      prove_batch calls, host verification of 4 proofs (and rejection with a
      tampered public input). The kernels' launch counters are zeroed just
      before and read just after, and each kernel must have run.
-  4. K3 and K4 on the main path's own inputs: the five MSMs of prove_batch
-     at B = 16 (proofs 0 and 15 against the plain version) and every query
-     point of the setup (against the plain version over the setup's scalars).
+  4. K3 and K4 on the main path's own inputs: the MSM stage of one prove
+     under torch.cuda.set_sync_debug_mode("error") (K3 reads nothing back
+     to the host); K3's time per launch for each of the five MSMs; the five
+     MSMs at B = 16 (proofs 0 and 15 against the plain version) and every
+     query point of the setup (against the plain version over the setup's
+     scalars).
 Then one JSON line per kernel table and, last, the device line."""
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_IMUL_S = 64 * 132 * 1.98e9
 MONT_MULS = 264  # 32-bit multiplies in one 8-word CIOS Montgomery product
 ADD_MULS = {"g1": 16, "g2": 44}  # field multiplies in one Jacobian add
+MADD_MULS = {"g1": 11, "g2": 30}  # ... in one mixed (affine) add
 DBL_MULS = {"g1": 7, "g2": 16}  # ... and in one doubling
 COORD_BYTES = {"g1": 64, "g2": 128}
 
@@ -56,6 +64,78 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def msm_bounds(group: str, B: int, m: int, nz: int):
+    """K3's bound for one call with nz nonzero digits: (ms, by) from the
+    current design's least count (a mixed add per digit, one weighted sum of
+    255 buckets per proof: 511 adds) and from the first port's count (a full
+    add per digit, 511 adds per window sum, 256 doublings per proof). Bytes:
+    points, scalars in, sums out."""
+    nbytes = m * 3 * COORD_BYTES[group] + B * m * 64 + B * 3 * COORD_BYTES[group]
+    return (bound(nbytes, nz * MADD_MULS[group] + B * 511 * ADD_MULS[group]),
+            bound(nbytes, (nz + B * 32 * 511) * ADD_MULS[group] + B * 256 * DBL_MULS[group]))
+
+
+TOXIC = tuple(range(12345, 12345 + 5 * 7919, 7919))  # tau, alpha, beta, gamma, delta
+
+
+def spend_batch(dev, batch: int):
+    """The main path's Spend inputs, as bench.py derives them from the fixture:
+    (witness arguments on the card, expected public commitments)."""
+    from pob_tpu_torch.field import limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.harness.inputs import load_spend_input, spend_expected_commitment
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "spend_input.json")
+    base = load_spend_input(fix)
+    cases = [dict(base, extra_commitment=base["extra_commitment"] + i) for i in range(batch)]
+    args = [limb.to_device(limb.ints_to_limbs([c[k] % FR_MOD for c in cases]), dev)
+            for k in ("burn_key", "balance", "withdrawn", "extra_commitment")]
+    return args, [spend_expected_commitment(c) for c in cases]
+
+
+def five_msms(pk, W, h):
+    """(name, group, points, scalars, affine bases) of the five MSMs of
+    prove_batch (groth16.msm_stage)."""
+    sc = {"a_query": W, "b1_query": W, "b2_query": W, "l_query": W[:, pk.num_public + 1:],
+          "h_query": h}
+    from pob_tpu_torch.prover.groth16 import MSM_QUERIES
+
+    return [(q.split("_")[0], g, getattr(pk, q), sc[q], pk.bases[q]) for q, g in MSM_QUERIES]
+
+
+def msm_breakdown(torch, msm, msms) -> dict:
+    """K3's time per launch (CUDA events) for each MSM, on its second call;
+    `other` is the rest of the call's time (torch ops between launches,
+    waits for host reads)."""
+    out = {}
+    for name, group, pts, sc, bases in msms:
+        msm.msm_batched(group, pts, sc, bases)
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        timing = []
+        s.record()
+        msm.msm_batched(group, pts, sc, bases, timing)
+        e.record()
+        torch.cuda.synchronize()
+        parts = {}
+        for label, a, b in timing:
+            parts[label] = parts.get(label, 0.0) + a.elapsed_time(b)
+        total = s.elapsed_time(e)
+        parts["other"] = total - sum(parts.values())
+        B, m = sc.shape[0], sc.shape[1]
+        nz = int((msm.scalar_digits(sc) != 0).sum())
+        (bms, by), (bms_pr2, _) = msm_bounds(group, B, m, nz)
+        out[name] = {"group": group, "B": B, "m": m, "nonzero_digits": nz,
+                     "total_ms": total, "bound_ms": bms, "bound_by": by,
+                     "bound_ms_full_adds": bms_pr2, "launches": len(timing), "ms": parts}
+        log(f"K3 breakdown {name}-MSM ({group}, B={B}, m={m}, {nz} nonzero digits, "
+            f"{len(timing)} launches): total_ms {total:.3f} bound_ms {bms:.3f} ({by}; "
+            f"{bms_pr2:.3f} with full adds) | "
+            + " ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return out
+
+
 def main():
     try:
         import torch
@@ -70,7 +150,6 @@ def main():
 
     from pob_tpu_torch.field import cuda_mont, limb
     from pob_tpu_torch.field.ref import FR_MOD
-    from pob_tpu_torch.harness.inputs import load_spend_input, spend_expected_commitment
     from pob_tpu_torch.prover import curve, groth16, msm, ntt
     from pob_tpu_torch.r1cs.spend_circuit import assemble_witness, build_spend_cs, spend_witness
 
@@ -85,6 +164,20 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build_s {time.perf_counter() - t0:.3f} (sources {_build.sources_hash()})")
+    ptxas = _build.ptxas_report()
+    for src, kernels in ptxas.items():
+        log(f"ptxas {src}: " + ", ".join(f"{k} {r} regs {ss}/{sl} B spill st/ld"
+                                         for k, r, ss, sl in kernels))
+    spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu")
+              for k, _, ss, sl in ptxas[src] if ss or sl]
+    log("K2/K3 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
+    if "--msm-breakdown" in sys.argv[1:]:
+        args, _ = spend_batch(dev, 16)
+        cs = build_spend_cs()
+        pk, _ = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
+        W = assemble_witness(cs, spend_witness(*args))
+        msm_breakdown(torch, msm, five_msms(pk, W, groth16.compute_h(pk.k, pk.mats, W)))
+        return
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20260)
@@ -189,15 +282,27 @@ def main():
     xm = rand_elems((rows_main, 1 << k_main))
     br = xm.index_select(-2, torch.from_numpy(ntt._bitrev(k_main)).to(dev))
     roots = limb.to_device(ntt._root_powers(k_main, False), dev)
+    want = ntt._transform_plain(br, k_main, roots)
     k2_err = max(k2_err, exact(f"K2 stages k={k_main}", ntt.ntt_stages_cuda(br, k_main, roots),
-                               ntt._transform_plain(br, k_main, roots)))
+                               want))
+    k2_err = max(k2_err, exact(f"K2 gather + stages k={k_main}",
+                               ntt.ntt_stages_cuda(xm, k_main, roots, gather=True), want))
+    for k in (1, 5, 11, 13):  # below one tile, and two passes split unevenly
+        xs = rand_elems((3, 1 << k))
+        rk = limb.to_device(ntt._root_powers(k, k % 2 == 1), dev)
+        brk = xs.index_select(-2, torch.from_numpy(ntt._bitrev(k)).to(dev))
+        wk = ntt._transform_plain(brk, k, rk)
+        k2_err = max(k2_err, exact(f"K2 k={k}", ntt.ntt_stages_cuda(brk, k, rk), wk),
+                     exact(f"K2 gather k={k}", ntt.ntt_stages_cuda(xs, k, rk, gather=True), wk))
     km = cuda_ms(lambda: ntt.ntt_stages_cuda(br, k_main, roots), 5)
+    km_gather = cuda_ms(lambda: ntt.ntt_stages_cuda(xm, k_main, roots, gather=True), 5)
     pm = cuda_ms(lambda: ntt._transform_plain(br, k_main, roots), 1)
     n_main = 1 << k_main
     bms, by = bound(2 * rows_main * n_main * 64 + n_main // 2 * 64,
                     k_main * rows_main * n_main // 2)
-    log(f"K2 exact (intt->coset k={k_chk} B=2; stages k={k_main} rows={rows_main}): "
-        f"kernel_ms {km:.4f} plain_ms {pm:.4f}")
+    log(f"K2 exact (intt->coset k={k_chk} B=2; stages k={k_main} rows={rows_main}, with and "
+        f"without the gather; k = 1, 5, 11, 13): passes {ntt.ntt_passes(k_main)}; kernel_ms "
+        f"{km:.4f} (with the gather {km_gather:.4f}) plain_ms {pm:.4f} bound_ms {bms:.4f}")
     rows.append({"name": "K2 ntt (k butterfly stages)", "route": "cuda",
                  "source": "pob_tpu_torch/csrc/ntt.cu",
                  "replaces": "pob_tpu/prover/ntt.py:61", "launches": 0,
@@ -228,35 +333,44 @@ def main():
         pts[0][4], pts[2][4] = pts[0][3], pts[2][3]
         one = ops.one((2,), dev)
         pts[0][5:7], pts[1][5:7], pts[2][5:7] = one, one, torch.zeros_like(one)  # infinity
-        sc = rand_elems((2, m))  # top byte < 0x30: no random digit 0x30 in window 31
+        sc = rand_elems((2, m)) & 0x2F2F  # every random digit below 0x30
         sc[:, 7:10] = 0
-        # digit 0x30 of window 31 only for the special points: bucket {P0, P0}
-        # (doubling) in proof 0 and {Q, -Q} (cancel) in proof 1
+        # digit 0x30 (window 31) only for the special points: bucket 0x30 holds
+        # {2^248 P0, 2^248 P0} (doubling) in proof 0 and {2^248 Q, -2^248 Q}
+        # (cancel) in proof 1
         sc[0, 1], sc[0, 2] = s_star, s_star
         sc[1, 3], sc[1, 4] = s_star, s_star
         pts = tuple(pts)
         (kern, km), (plain, pm) = (once_ms(lambda: msm.msm_batched(group, pts, sc)),
                                    once_ms(lambda: msm.msm_plain(ops, pts, sc)))
         same_points(f"K3 {group}", group, kern, plain)
+        bnd = [0x7F, 0x80, 0xFF, FR_MOD - 1, 0x7F << 240, 0x80 << 120, 0xFF << 8,
+               int("80" * 31, 16), int("7F" * 31, 16), int("FF" * 31, 16) % FR_MOD]
+        sc_b = limb.to_device(limb.ints_to_limbs(bnd * 2), dev).reshape(2, len(bnd), 16)
+        sc_b[1] = sc_b[1].roll(3, 0)
+        pts_b = tuple(c[:len(bnd)].contiguous() for c in pts)
+        same_points(f"K3 {group} digit boundaries", group, msm.msm_batched(group, pts_b, sc_b),
+                    msm.msm_plain(ops, pts_b, sc_b))
+        m_skew = 2048  # all scalars 1: one bucket of m entries, 3 bucket-sum levels
+        sc_1 = limb.to_device(limb.ints_to_limbs([1] * (2 * m_skew)), dev).reshape(2, m_skew, 16)
+        pts_1 = tuple(c[:m_skew].contiguous() for c in msm.fixed_base_msm(group,
+                                                                          rand_elems((m_skew,))))
+        same_points(f"K3 {group} skew", group, msm.msm_batched(group, pts_1, sc_1),
+                    msm.msm_plain(ops, pts_1, sc_1))
+        log(f"K3 {group}: digit boundaries 0x7F, 0x80, 0xFF, r-1 and an all-ones batch (m = "
+            f"{m_skew}, {len(msm.level_segs(m_skew))} levels) exact")
         log(f"K3 {group} m={m} B=2 exact (incl. infinity, doubling, cancel, zero scalars): "
             f"kernel_ms {km:.4f} plain_ms {pm:.4f}")
 
     # ---------------- the main path: Spend, domain 2^18, batch 16 ----------------
     batch = 16
-    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
-                       "spend_input.json")
-    base = load_spend_input(fix)
-    cases = [dict(base, extra_commitment=base["extra_commitment"] + i) for i in range(batch)]
-    args = [limb.to_device(limb.ints_to_limbs([c[k] % FR_MOD for c in cases]), dev)
-            for k in ("burn_key", "balance", "withdrawn", "extra_commitment")]
-    pubs = [spend_expected_commitment(c) for c in cases]
-    toxic = tuple(range(12345, 12345 + 5 * 7919, 7919))  # tau, alpha, beta, gamma, delta
+    args, pubs = spend_batch(dev, batch)
 
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
     cs = build_spend_cs()
-    pk, vk = groth16.setup(cs, rng=iter(toxic).__next__, device=dev)
+    pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     after_setup = dict(_build.LAUNCHES)
@@ -317,15 +431,24 @@ def main():
     # K3: every MSM of prove_batch at B = 16 on the same witnesses and h,
     # proofs 0 and 15 held against the plain version. K4: the setup's query
     # points against the plain version over the setup's scalars, in chunks.
-    npub = pk.num_public
     h = groth16.compute_h(pk.k, pk.mats, W)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host read in K3 raises
+    try:
+        groth16.msm_stage(pk, W, h)
+    except RuntimeError as e:
+        fail(f"the MSM stage synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("MSM stage of one prove (groth16.msm_stage) ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no host read")
+    msms = five_msms(pk, W, h)
+    log("msm_breakdown " + json.dumps(msm_breakdown(torch, msm, msms)))
     chk = torch.tensor([0, batch - 1], device=dev)
-    for name, group, pts, sc in (("a", "g1", pk.a_query, W), ("b1", "g1", pk.b1_query, W),
-                                 ("b2", "g2", pk.b2_query, W),
-                                 ("l", "g1", pk.l_query, W[:, npub + 1:]),
-                                 ("h", "g1", pk.h_query, h)):
+    for name, group, pts, sc, bases in msms:
         (kern, km), (plain, pm) = (
-            once_ms(lambda: msm.msm_batched(group, pts, sc)),
+            once_ms(lambda: msm.msm_batched(group, pts, sc, bases)),
             once_ms(lambda: msm.msm_plain(curve.ops_for(group), pts, sc[chk].contiguous())))
         same_points(f"K3 {name}-MSM", group, tuple(c[chk] for c in kern), plain)
         nz = int((msm.scalar_digits(sc) != 0).sum())
@@ -334,19 +457,19 @@ def main():
             f"(B=2)")
     m_h = 1 << pk.k
     nz = int((msm.scalar_digits(h) != 0).sum())
-    hm = cuda_ms(lambda: msm.msm_batched("g1", pk.h_query, h), 3)
-    bms, by = bound(m_h * 3 * 64 + batch * m_h * 64 + batch * 3 * 64,
-                    (nz + batch * 32 * 511) * ADD_MULS["g1"] + batch * 256 * DBL_MULS["g1"])
-    log(f"K3 h-MSM B={batch} m={m_h}: kernel_ms {hm:.3f} bound_ms {bms:.3f} ({by})")
+    hm = cuda_ms(lambda: msm.msm_batched("g1", pk.h_query, h, pk.bases["h_query"]), 3)
+    (bms, by), (bms_pr2, _) = msm_bounds("g1", batch, m_h, nz)
+    log(f"K3 h-MSM B={batch} m={m_h}: kernel_ms {hm:.3f} bound_ms {bms:.3f} ({by}; "
+        f"{bms_pr2:.3f} with a full add per digit)")
     rows.insert(2, {"name": "K3 msm (G1 Pippenger, the h-MSM)", "route": "cuda",
-                    "source": "pob_tpu_torch/csrc/msm.cu",
+                    "source": "pob_tpu_torch/csrc/msm.cuh",
                     "replaces": "pob_tpu/prover/msm.py:92", "launches": 0,
                     "max_abs_err": 0, "ms": hm, "plain_ms": pm, "bound_ms": bms,
                     "bound_by": by, "library_ms": None,
                     "shape": f"B={batch} x 2^{pk.k} G1 points",
                     "plain_shape": f"B=2 x 2^{pk.k} (proofs 0 and {batch - 1})"})
 
-    _, sc_host, _ = groth16.setup_scalars(cs, toxic)
+    _, sc_host, _ = groth16.setup_scalars(cs, TOXIC)
     ic_pts = curve.g1_points_to_device(vk.ic, dev)
     chunk = 1 << 16
     for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,9 +27,9 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "build", "pob_tpu_torch")
-SOURCES = ("mont.cu", "ntt.cu", "msm.cu", "fixed_base.cu")
+SOURCES = ("mont.cu", "ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"mont": 0, "ntt": 0, "msm": 0, "fixed_base": 0}
 
@@ -42,14 +43,15 @@ _L = ctypes.c_longlong
 # would be cut to 32 bits), every count as c_longlong / c_int.
 _ARGTYPES = {
     "mont.cu": {"pob_field_op": [_I, _I, _P, _P, _P, _L, _P]},
-    "ntt.cu": {"pob_ntt_stage": [_P, _P, _L, _I, _I, _P]},
-    "msm.cu": {
-        "pob_msm_count": [_I, _P, _L, _L, _P, _P],
-        "pob_msm_scatter": [_I, _P, _L, _L, _P, _P, _P],
-        "pob_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
-        "pob_msm_window_sum": [_I, _P, _P, _P, _L, _P, _P, _P, _P],
-        "pob_msm_horner": [_I, _P, _P, _P, _L, _P, _P, _P, _P],
-    },
+    "ntt.cu": {"pob_ntt_pass": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
+    **{src: {
+        "pob_msm_hist": [_P, _I, _I, _P, _P, _P],
+        "pob_msm_layout": [_P, _I, _I, ctypes.POINTER(_I), _P, _P, _P],
+        "pob_msm_scatter": [_P, _I, _I, _P, _P, _P, _P],
+        "pob_msm_bucket_sum": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
+        "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P],
+        "pob_msm_shifted_bases": [_P, _P, _P, _L, _P, _P],
+    } for src in ("msm_g1.cu", "msm_g2.cu")},
     "fixed_base.cu": {
         "pob_fb_scalar_mul": [_I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
         "pob_fb_window": [_I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
@@ -63,7 +65,7 @@ def reset_launches():
 
 
 def sources_hash() -> str:
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -84,6 +86,8 @@ def _compile(src: str, out: str):
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write(res.stderr)
     os.replace(tmp, out)
 
 
@@ -113,6 +117,50 @@ def build_all() -> dict:
 
 def lib(src: str):
     return build_all()[src]
+
+
+def parse_ptxas(text: str) -> list:
+    """`nvcc -Xptxas -v` output -> [(kernel, registers, spill store bytes,
+    spill load bytes)], one entry per compiled entry function."""
+    out, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
+
+
+def _demangle(sym: str) -> str:
+    """`_Z16bucket_sum_kernelI2FeE...` -> `bucket_sum_kernel<Fe>` (the
+    kernel's name and, for a template on the coordinate type, Fe or Fq2)."""
+    m = re.match(r"_Z(\d+)", sym)
+    if not m:
+        return sym
+    n, rest = int(m.group(1)), sym[m.end():]
+    name, rest = rest[:n], rest[n:]
+    if rest.startswith("I"):
+        targs = re.findall(r"(Fq2|Fe)E", rest[:16])
+        ints = re.findall(r"Li(\d+)E", rest[:32])
+        name += "<" + ",".join(targs[:1] + ints) + ">"
+    return name
+
+
+def ptxas_report() -> dict:
+    """{source: parse_ptxas of its build log} for the current build."""
+    build_all()
+    outdir = os.path.join(BUILD, sources_hash())
+    rep = {}
+    for s in SOURCES:
+        with open(os.path.join(outdir, s.replace(".cu", ".so")) + ".ptxas.txt") as f:
+            rep[s] = parse_ptxas(f.read())
+    return rep
 
 
 def stream_ptr(t: torch.Tensor) -> int:

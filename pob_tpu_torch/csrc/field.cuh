@@ -65,6 +65,20 @@ __device__ __forceinline__ void store16(int32_t* p, const Fe& a) {
   }
 }
 
+// The packed layout of K3's own buffers: 8 int32 words of 32 bits per
+// element (half the bytes of the 16-bit-limb layout).
+__device__ __forceinline__ Fe load8(const int32_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 a = q[0], b = q[1];
+  return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+__device__ __forceinline__ void store8(int32_t* p, const Fe& a) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  q[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  q[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
 __device__ __forceinline__ Fe fe_zero() {
   Fe r;
 #pragma unroll
@@ -180,6 +194,19 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
 template <int F>
 __device__ __forceinline__ Fe fe_sqr(const Fe& a) {
   return fe_mul<F>(a, a);
+}
+
+// a^(p-2) = a^-1 (Montgomery form in and out) by square-and-multiply over
+// the bits of p - 2; 0 maps to 0.
+template <int F>
+__device__ Fe fe_inv(const Fe& a) {
+  Fe r = a;  // the top bit of p - 2 (bit 253 for Fr and Fq)
+  for (int bit = 252; bit >= 0; bit--) {
+    r = fe_mul<F>(r, r);
+    const uint32_t e = c_mod[F][bit >> 5] - (bit < 32 ? 2u : 0u);
+    if ((e >> (bit & 31)) & 1) r = fe_mul<F>(r, a);
+  }
+  return r;
 }
 
 // Montgomery reduction of a 512-bit value c (16 words, c < p * 2^256):

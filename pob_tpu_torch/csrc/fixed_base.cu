@@ -6,7 +6,7 @@
 // built by groth16._window_table_kernel (groth16.py:131).
 //
 // Bound on this card: integer multiplies. Each scalar costs up to 32
-// Jacobian adds (~16 Fq multiplies on G1, ~48 on G2, 264 32-bit multiplies
+// Jacobian adds (16 Fq multiplies on G1, 44 on G2, 264 32-bit multiplies
 // each) against 64 bytes of scalar in and 192 / 384 bytes of point out.
 // Design: the window table T[w][v] = v * 2^(8w) * G (8192 points) is made
 // once by pob_fb_scalar_mul, one thread per entry running double-and-add

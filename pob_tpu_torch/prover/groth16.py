@@ -84,6 +84,21 @@ class ProvingKey:
     h_query: tuple  # Jacobian (n,), coset-Lagrange basis
     # COO matrices (A with binding rows, B): (rows i64, cols i64, coeffs c*R^2 (nnz, 16))
     mats: tuple
+    # on the card: msm.affine_bases of each query above, by name (K3's
+    # mixed adds read these); None on the CPU, whose path adds Jacobian points
+    bases: dict | None = None
+
+
+MSM_QUERIES = (("a_query", "g1"), ("b1_query", "g1"), ("b2_query", "g2"), ("l_query", "g1"),
+               ("h_query", "g1"))
+
+
+def attach_bases(pk: ProvingKey) -> ProvingKey:
+    """Make the affine bases of a key whose points lie on the card (once
+    per key, at setup and at load)."""
+    if pk.a_query[0].is_cuda:
+        pk.bases = {q: msm.affine_bases(g, getattr(pk, q)) for q, g in MSM_QUERIES}
+    return pk
 
 
 @dataclass
@@ -210,6 +225,7 @@ def setup(cs: ConstraintSystem, rng=None, device=None):
         a_query=a_q, b1_query=b1_q, b2_query=b2_q, l_query=l_q, h_query=h_q,
         mats=_mats_to_device(host_mats, device),
     )
+    attach_bases(pk)
     vk = VerifyingKey(alpha1=pk.alpha1, beta2=pk.beta2, gamma2=g2_mul(G2_GEN, gamma),
                       delta2=pk.delta2, ic=curve.to_affine_host_batch("fq", ic_q))
     return pk, vk
@@ -259,20 +275,13 @@ def prove_batch(pk: ProvingKey, W, rs=None, timings: dict | None = None):
     (r, s) blinding pairs. With a `timings` dict, the h stage and the MSMs
     are synchronized and their seconds stored under "h_s" and "msm_s"."""
     B = int(W.shape[0])
-    npub = pk.num_public
     t0 = time.perf_counter()
     h = compute_h(pk.k, pk.mats, W)
     if timings is not None:
         _sync(W.device)
         t1 = time.perf_counter()
-    a_sum = msm.msm_batched("g1", pk.a_query, W)
-    b1_sum = msm.msm_batched("g1", pk.b1_query, W)
-    b2_sum = msm.msm_batched("g2", pk.b2_query, W)
-    c_l = (msm.msm_batched("g1", pk.l_query, W[:, npub + 1:])
-           if int(pk.l_query[0].shape[0]) else None)
-    c_h = msm.msm_batched("g1", pk.h_query, h)
     sums = [tuple(c.cpu().numpy() for c in p) if p is not None else None
-            for p in (a_sum, b1_sum, b2_sum, c_l, c_h)]
+            for p in msm_stage(pk, W, h)]
     if timings is not None:
         t2 = time.perf_counter()
         timings["h_s"] = t1 - t0
@@ -283,6 +292,18 @@ def prove_batch(pk: ProvingKey, W, rs=None, timings: dict | None = None):
         r, s = rs[i] if rs is not None else (None, None)
         proofs.append(finish_proof(pk, si, r, s))
     return proofs
+
+
+def msm_stage(pk: ProvingKey, W, h):
+    """The five MSMs of a batch on W's device, left there: (A, B1, B2, L, H)
+    sums, (B,) Jacobian each (L is None for a key without private wires).
+    On the card every one is a K3 call that reads nothing back to the host."""
+    npub = pk.num_public
+    scalars = {"a_query": W, "b1_query": W, "b2_query": W, "l_query": W[:, npub + 1:],
+               "h_query": h}
+    return [msm.msm_batched(g, getattr(pk, q), scalars[q], pk.bases and pk.bases[q])
+            if q != "l_query" or int(pk.l_query[0].shape[0]) else None
+            for q, g in MSM_QUERIES]
 
 
 def finish_proof(pk: ProvingKey, sums, r: int | None = None, s: int | None = None):
@@ -362,6 +383,7 @@ def pk_from_arrays(d, device=None):
         mats=tuple((idx(d[f"m{i}_rows"]), idx(d[f"m{i}_cols"]),
                     limb.to_device(d[f"m{i}_cf"], device)) for i in range(2)),
     )
+    attach_bases(pk)
     vk = VerifyingKey(alpha1=pk.alpha1, beta2=pk.beta2, gamma2=_dec_g2(d["gamma2"]),
                       delta2=pk.delta2, ic=[_dec_g1(p) for p in d["ic"]])
     return pk, vk

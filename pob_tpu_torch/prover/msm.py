@@ -4,10 +4,12 @@ fixed-base scalar multiplication for the trusted setup (K4).
 Each kernel has its plain PyTorch version here; the wrappers take the plain
 version for CPU tensors only and launch the kernel for CUDA tensors.
 
-- K3 ``msm_batched`` (``csrc/msm.cu``): out[b] = sum_i s[b, i] P[i] over 32
-  windows of 8 bits with the classic bucket form. Plain version
-  ``msm_plain``: the same buckets summed by sort and pairwise adds
-  (``segment_sum``), then per bit position and a binary-tree Horner.
+- K3 ``msm_batched`` (``csrc/msm.cuh``): out[b] = sum_i s[b, i] P[i] with
+  8-bit digits, by the bucket method over the key's shifted bases
+  2^(8w) P_i (``affine_bases``): 255 buckets per proof, no doublings per
+  call. Plain version ``msm_plain``: buckets per (proof, window, digit)
+  summed by sort and pairwise adds (``segment_sum``), then per bit
+  position and a binary-tree Horner.
 - K4 ``fixed_base_msm`` (``csrc/fixed_base.cu``): k_i G for every scalar,
   through the window table T[w][v] = v 2^(8w) G. Plain version
   ``fixed_base_plain``: the table entries the digits use, each summed from
@@ -18,21 +20,26 @@ can check the kernels at the main path's sizes."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import torch
 
 from .. import _build
 from ..field import limb
-from ..field.ref import FR_MOD, G1_GEN, G2_GEN
+from ..field.ref import FQ_MOD, FR_MOD, G1_GEN, G2_GEN
 from . import curve
 
 WINDOW_BITS = 8
 N_WINDOWS = 256 // WINDOW_BITS
 N_BUCKETS = 1 << WINDOW_BITS
-SEG = 32  # most points one K3 thread sums before its partial is summed again
+SEG0 = 32  # most points one K3 thread sums at the first bucket-sum level
+SEG = 8  # most partials one K3 thread sums at each later level
+HIST_CHUNK = 256  # scalars per hist / scatter block (HT in csrc/msm.cuh)
 
 _GROUP_ID = {"g1": 0, "g2": 1}
+_MSM_SRC = {"g1": "msm_g1.cu", "g2": "msm_g2.cu"}
 
 
 def scalar_digits(scalars):
@@ -188,20 +195,149 @@ def fixed_base_plain(group: str, scalars):
 # ---------------------------------------------------------------------------
 
 
-def msm_batched(group: str, points, scalars):
+def level_segs(n: int) -> list:
+    """Segment length of each bucket-sum level: SEG0 entries at level 0, then
+    SEG partials, until one partial covers a bucket of n entries (K3 passes
+    the most a bucket can hold: 32 m, one entry per point and window)."""
+    segs = [SEG0]
+    while math.prod(segs) < n:
+        segs.append(SEG)
+    return segs
+
+
+def level_caps(B: int, m: int, segs) -> list:
+    """Most items each level can have, from B and m alone: B m 32 digits at
+    level 0; a level of n items in k buckets has at most n // s + 1 + k
+    segments of s, and never more than n. These size K3's scratch and grids,
+    so no count is read back from the card."""
+    n_keys = B * N_BUCKETS
+    caps = [B * m * N_WINDOWS]
+    for s in segs:
+        caps.append(min(caps[-1], caps[-1] // s + 1 + n_keys))
+    return caps
+
+
+def segment_layout_plain(counts, segs):
+    """Plain version of K3's layout kernel: counts (n_keys,) -> (len(segs) +
+    1, n_keys + 1) int32 P with P[l, k] = sum_{k' < k} ceil(counts[k'] / D_l),
+    D_l the product of segs[:l], and the total in the last column."""
+    c = counts.long()
+    rows, d = [], 1
+    for l in range(len(segs) + 1):
+        v = (c + d - 1) // d
+        rows.append(torch.cat([v.new_zeros(1), torch.cumsum(v, 0)]))
+        if l < len(segs):
+            d *= segs[l]
+    return torch.stack(rows).to(torch.int32)
+
+
+def pack_words(limbs):
+    """(..., 2n) 16-bit limbs -> (..., n) int32 words of 32 bits (K3's packed
+    layout; the bit pattern of each word, so words >= 2^31 read negative)."""
+    w = limbs[..., 0::2].long() | (limbs[..., 1::2].long() << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _fq_inv_plain(a):
+    """a^(q-2) in Montgomery form by square-and-multiply; 0 maps to 0."""
+    e = FQ_MOD - 2
+    r = a
+    for bit in range(e.bit_length() - 2, -1, -1):
+        r = limb.mont_mul_plain(limb.FQ, r, r)
+        if (e >> bit) & 1:
+            r = limb.mont_mul_plain(limb.FQ, r, a)
+    return r
+
+
+def _coord_inv_plain(group: str, a):
+    if group == "g1":
+        return _fq_inv_plain(a)
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    n = _fq_inv_plain(limb.add_plain(limb.FQ, limb.mont_mul_plain(limb.FQ, a0, a0),
+                                     limb.mont_mul_plain(limb.FQ, a1, a1)))
+    c1 = limb.mont_mul_plain(limb.FQ, a1, n)
+    return torch.stack([limb.mont_mul_plain(limb.FQ, a0, n),
+                        limb.sub_plain(limb.FQ, torch.zeros_like(c1), c1)], -2)
+
+
+def affine_bases_plain(group: str, points):
+    """Plain version of K3's shifted-bases kernel: (m,) Jacobian points P_i
+    -> (32 m, 16) (G1) or (32 m, 32) (G2) int32, row w m + i the packed words
+    of x then y of 2^(8w) P_i, affine, Montgomery form; infinity gives
+    (0, 0), since the inverse of Z = 0 is 0."""
+    ops = curve.ops_for(group)
+    shifted = [points]
+    for _ in range(N_WINDOWS - 1):
+        shifted.append(curve.times_pow2(ops, shifted[-1], WINDOW_BITS))
+    x, y, z = (torch.cat(cs, 0) for cs in zip(*shifted))
+    zi = _coord_inv_plain(group, z)
+    zi2 = ops.sqr(zi)
+    ax, ay = ops.mul(x, zi2), ops.mul(y, ops.mul(zi2, zi))
+    n = x.shape[0]
+    return pack_words(torch.cat([ax.reshape(n, -1), ay.reshape(n, -1)], -1))
+
+
+def affine_bases(group: str, points):
+    """The table K3 adds from: 2^(8w) P_i for every window w, packed affine
+    (see affine_bases_plain); made once per key (``ProvingKey.bases``)."""
+    if not points[0].is_cuda:
+        return affine_bases_plain(group, points)
+    points = tuple(c.contiguous() for c in points)
+    m = _check_points(group, points)
+    out = torch.empty((N_WINDOWS * m, _bases_width(group)), dtype=torch.int32,
+                      device=points[0].device)
+    if m:
+        _launch(None, "shifted_bases", _build.lib(_MSM_SRC[group]).pob_msm_shifted_bases,
+                *_ptrs(points), m, out.data_ptr(), _build.stream_ptr(out))
+    return out
+
+
+def _bases_width(group: str) -> int:
+    return limb.L * (1 if group == "g1" else 2)
+
+
+def msm_batched(group: str, points, scalars, bases=None, timing=None):
     """sum_i scalars[b, i] * points[i] for every b. points: (m, ...) Jacobian
-    (shared by the batch); scalars: (B, m, 16) canonical Fr limbs. Returns
-    (B,) Jacobian points."""
+    (shared by the batch); scalars: (B, m, 16) canonical Fr limbs; bases:
+    affine_bases(group, points) if the caller keeps it (made here if not).
+    Returns (B,) Jacobian points. On the card, a list given as `timing`
+    gets one (label, start, end) CUDA-event triple per K3 launch."""
     if scalars.is_cuda:
-        return pippenger_cuda(group, points, scalars)
+        return pippenger_cuda(group, points, scalars, bases, timing)
     return msm_plain(curve.ops_for(group), points, scalars)
 
 
-def pippenger_cuda(group: str, points, scalars):
-    """K3 launches: count and scatter point indices by bucket key (proof,
-    window, digit); sum segments of each bucket, level by level, until one
-    partial remains per bucket; weighted bucket sum per window; Horner fold
-    per proof."""
+def _launch(timing, label, fn, *args):
+    """Launch one K3 kernel: count it, time it into `timing` if that is a
+    list, raise on a launch error."""
+    if timing is not None:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    rc = fn(*args)
+    if timing is not None:
+        ev[1].record()
+        timing.append((label, *ev))
+    _build.LAUNCHES["msm"] += 1
+    _build.check(rc, label)
+
+
+def _layout_cuda(lib, counts, segs, stream, timing=None):
+    """K3's layout kernel: (P as segment_layout_plain gives it, cursor)."""
+    n_keys = counts.shape[0]
+    P = torch.empty((len(segs) + 1, n_keys + 1), dtype=torch.int32, device=counts.device)
+    cursor = torch.empty(n_keys, dtype=torch.int32, device=counts.device)
+    div = [math.prod(segs[:l]) for l in range(len(segs) + 1)]
+    _launch(timing, "layout", lib.pob_msm_layout, counts.data_ptr(), n_keys, len(segs),
+            (ctypes.c_int * len(div))(*div), P.data_ptr(), cursor.data_ptr(), stream)
+    return P, cursor
+
+
+def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
+    """K3 launches (csrc/msm.cuh): hist, layout, scatter (the digits of each
+    proof sorted into 255 buckets by value, as indices into the shifted
+    bases); one bucket-sum launch per level of level_segs(32 m); reduce.
+    Every buffer and grid is sized from B and m (level_caps), so nothing is
+    read back to the host between the first launch and the output."""
     points = tuple(c.contiguous() for c in points)
     scalars = scalars.contiguous()
     m = _check_points(group, points)
@@ -212,57 +348,42 @@ def pippenger_cuda(group: str, points, scalars):
     if B * m * N_WINDOWS >= 1 << 31:  # the kernels index the sorted digits with int32
         raise ValueError(f"B * m = {B * m} is too large for one K3 call; split the batch")
     dev = scalars.device
-    lib = _build.lib("msm.cu")
-    gid = _GROUP_ID[group]
+    if B * m == 0:
+        return curve.infinity(curve.ops_for(group), (B,), dev)
+    if bases is None:
+        bases = affine_bases(group, points)
+    _build.check_cuda(bases)
+    if tuple(bases.shape) != (N_WINDOWS * m, _bases_width(group)):
+        raise ValueError(f"bases must be affine_bases of the points, got {tuple(bases.shape)}")
+    lib = _build.lib(_MSM_SRC[group])
     stream = _build.stream_ptr(scalars)
-    ops = curve.ops_for(group)
+    pw = 3 * _bases_width(group) // 2  # words of a packed Jacobian partial
 
-    def launched(rc, what):
-        _build.LAUNCHES["msm"] += 1
-        _build.check(rc, what)
+    def i32(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
 
-    n_keys = B * N_WINDOWS * N_BUCKETS
+    n_keys = B * N_BUCKETS
+    chunks = -(-m // HIST_CHUNK)
     counts = torch.zeros(n_keys, dtype=torch.int32, device=dev)
-    if B * m:
-        launched(lib.pob_msm_count(gid, scalars.data_ptr(), B, m, counts.data_ptr(),
-                                   stream), "pob_msm_count")
-    cnt = counts.long()
-    start = torch.cumsum(cnt, 0) - cnt
-    total = int(cnt.sum())
-    idx = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-    if total:
-        cursor = start.to(torch.int32)
-        launched(lib.pob_msm_scatter(gid, scalars.data_ptr(), B, m, cursor.data_ptr(),
-                                     idx.data_ptr(), stream), "pob_msm_scatter")
-
-    buckets = curve.infinity(ops, (n_keys,), dev)
-    src, src_idx = points, idx
-    keys = torch.arange(n_keys, device=dev)
-    while total:
-        nseg = (cnt + SEG - 1) // SEG
-        n_total = int(nseg.sum())
-        seg_key = torch.repeat_interleave(keys, nseg)
-        first = torch.cumsum(nseg, 0) - nseg
-        local = torch.arange(n_total, device=dev) - first[seg_key]
-        seg_start = (start[seg_key] + local * SEG).to(torch.int32)
-        seg_len = torch.clamp(cnt[seg_key] - local * SEG, max=SEG).to(torch.int32)
-        out = _empty_points(group, n_total, dev)
-        launched(lib.pob_msm_bucket_sum(
-            gid, *_ptrs(src), None if src_idx is None else src_idx.data_ptr(),
-            seg_start.data_ptr(), seg_len.data_ptr(), n_total, *_ptrs(out), stream),
-            "pob_msm_bucket_sum")
-        if int(nseg.max()) <= 1:
-            for c, o in zip(buckets, out):
-                c[seg_key] = o
-            break
-        cnt, start, src, src_idx = nseg, first, out, None
-
-    windows = _empty_points(group, B * N_WINDOWS, dev)
-    launched(lib.pob_msm_window_sum(gid, *_ptrs(buckets), B * N_WINDOWS, *_ptrs(windows),
-                                    stream), "pob_msm_window_sum")
+    blockhist = i32(B * chunks * N_BUCKETS)
+    _launch(timing, "hist", lib.pob_msm_hist, scalars.data_ptr(), B, m, blockhist.data_ptr(),
+            counts.data_ptr(), stream)
+    segs = level_segs(N_WINDOWS * m)
+    caps = level_caps(B, m, segs)
+    P, cursor = _layout_cuda(lib, counts, segs, stream, timing)
+    idx = i32(caps[0])
+    _launch(timing, "scatter", lib.pob_msm_scatter, scalars.data_ptr(), B, m,
+            blockhist.data_ptr(), cursor.data_ptr(), idx.data_ptr(), stream)
+    src, src_idx = bases, idx
+    for level, seg in enumerate(segs):
+        out = i32(caps[level + 1] * pw)
+        _launch(timing, f"bucket_sum{level}", lib.pob_msm_bucket_sum, src.data_ptr(),
+                None if src_idx is None else src_idx.data_ptr(), P[level].data_ptr(),
+                P[level + 1].data_ptr(), n_keys, seg, caps[level + 1], out.data_ptr(), stream)
+        src, src_idx = out, None
     out = _empty_points(group, B, dev)
-    launched(lib.pob_msm_horner(gid, *_ptrs(windows), B, *_ptrs(out), stream),
-             "pob_msm_horner")
+    _launch(timing, "reduce", lib.pob_msm_reduce, src.data_ptr(), P[-1].data_ptr(), B,
+            *_ptrs(out), stream)
     return out
 
 

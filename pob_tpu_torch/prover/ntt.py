@@ -4,9 +4,10 @@ Used for the QAP quotient: evaluate on a multiplicative coset of the 2^k
 domain, multiply pointwise, and MSM the coset evaluations (groth16.py).
 
 The transform is an iterative Cooley-Tukey: a bit-reversal gather, then k
-butterfly stages from the master twiddle table. On a CUDA tensor each stage
-is one launch of kernel K2 (``csrc/ntt.cu``) over every row of the batch; on
-a CPU tensor the plain version ``_transform_plain`` runs the same stages with
+butterfly stages from the master twiddle table. On a CUDA tensor kernel K2
+(``csrc/ntt.cu``) runs up to 10 stages per launch in shared memory, over
+every row of the batch, the gather folded into its first launch; on a CPU
+tensor the plain version ``_transform_plain`` runs the same stages with
 PyTorch indexing and the plain field ops. 2-adicity of Fr is 28, generator 5."""
 
 from __future__ import annotations
@@ -101,31 +102,53 @@ def _transform_plain(a, k: int, roots):
     return a
 
 
-def ntt_stages_cuda(a, k: int, roots):
-    """K2: k in-place butterfly launches over a (..., 2^k, 16) CUDA tensor
-    already in bit-reversed order; returns the transformed tensor."""
-    x = a.contiguous().clone()
+TILE_LOG = 10  # most elements one K2 block holds in shared memory (csrc/ntt.cu)
+
+
+def ntt_passes(k: int) -> list:
+    """(s0, T, C) of each K2 launch for a 2^k transform: T stages from stage
+    s0 on tiles of 2^T elements 2^s0 apart times 2^C adjacent columns, every
+    tile at most 2^TILE_LOG elements (k = 18: (0, 10, 0), (10, 8, 2))."""
+    out, s0 = [], 0
+    while s0 < k:
+        t = min(TILE_LOG, k - s0)
+        out.append((s0, t, min(s0, TILE_LOG - t)))
+        s0 += t
+    return out
+
+
+def ntt_stages_cuda(a, k: int, roots, gather: bool = False):
+    """K2: the k butterfly stages over a (..., 2^k, 16) CUDA tensor, one
+    launch per entry of ntt_passes(k); returns a new tensor. The input is in
+    bit-reversed order, or in natural order with gather=True (the first pass
+    then gathers it)."""
+    x = a.contiguous()
     roots = roots.contiguous()
     _build.check_cuda(x, roots)
     if x.shape[-2:] != (1 << k, limb.L) or roots.shape != (max(1, (1 << k) // 2), limb.L):
         raise ValueError(f"bad NTT shapes {tuple(x.shape)} / {tuple(roots.shape)}")
+    if k == 0:
+        return x.clone()
     rows = x.numel() // ((1 << k) * limb.L)
-    fn = _build.lib("ntt.cu").pob_ntt_stage
-    for s in range(k):
-        rc = fn(x.data_ptr(), roots.data_ptr(), rows, k, s, _build.stream_ptr(x))
+    y = torch.empty_like(x)
+    fn = _build.lib("ntt.cu").pob_ntt_pass
+    src = x
+    for s0, t, c in ntt_passes(k):
+        rc = fn(src.data_ptr(), y.data_ptr(), roots.data_ptr(), rows, k, s0, t, c,
+                int(gather and s0 == 0), _build.stream_ptr(x))
         _build.LAUNCHES["ntt"] += 1
-        _build.check(rc, "pob_ntt_stage")
-    return x
+        _build.check(rc, "pob_ntt_pass")
+        src = y
+    return y
 
 
 def _transform(a, k: int, inverse: bool):
     if k == 0:
         return a
-    a = a.index_select(-2, _table(_bitrev, k, like=a))
     roots = _table(_root_powers, k, inverse, like=a)
     if a.is_cuda:
-        return ntt_stages_cuda(a, k, roots)
-    return _transform_plain(a, k, roots)
+        return ntt_stages_cuda(a, k, roots, gather=True)
+    return _transform_plain(a.index_select(-2, _table(_bitrev, k, like=a)), k, roots)
 
 
 def ntt(a, k: int):

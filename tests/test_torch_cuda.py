@@ -9,12 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from pob_tpu_torch import _build
 from pob_tpu_torch.field import cuda_mont, limb
-from pob_tpu_torch.field.ref import FR_MOD, G1_GEN, G2_GEN, g1_mul, g2_mul
+from pob_tpu_torch.field.ref import FR_MOD, G1_GEN, G2_GEN, g1_add, g1_mul, g2_add, g2_mul
 from pob_tpu_torch.prover import curve, msm, ntt
 from pob_tpu_torch.r1cs.builder import ConstraintSystem
 
 pytestmark = pytest.mark.cuda
+
+
+def curve_ref_add(group):
+    return g1_add if group == "g1" else g2_add
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +75,68 @@ def test_k3_k4_match_plain(dev, group, m):
     got = msm.msm_batched(group, pts, ssc)
     want = msm.msm_plain(ops, pts, ssc)
     assert curve.to_affine_host_batch(ops.name, got) == curve.to_affine_host_batch(ops.name, want)
+
+
+@pytest.mark.parametrize("k", [5, 11, 13])
+def test_k2_passes_match_plain(dev, k):
+    """Below one tile (k = 5) and with two unevenly split passes (11, 13),
+    from bit-reversed input and with the gather folded in."""
+    x = _elems((3, 1 << k), 30 + k).to(dev)
+    br = x.index_select(-2, torch.from_numpy(ntt._bitrev(k)).to(dev))
+    roots = limb.to_device(ntt._root_powers(k, True), dev)
+    want = ntt._transform_plain(br, k, roots)
+    assert torch.equal(ntt.ntt_stages_cuda(br, k, roots), want)
+    assert torch.equal(ntt.ntt_stages_cuda(x, k, roots, gather=True), want)
+
+
+def _same(group, p, q):
+    return bool(curve.points_equal(curve.ops_for(group), p, q).all())
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k3_skewed_batch(dev, group):
+    """All scalars 1: one bucket of m = 2048 entries, 3 bucket-sum levels."""
+    m = 2048
+    assert len(msm.level_segs(m)) >= 3
+    pts = msm.fixed_base_msm(group, _elems((m,), 6).to(dev))
+    sc = limb.to_device(limb.ints_to_limbs([1] * (2 * m)), dev).reshape(2, m, 16)
+    assert _same(group, msm.msm_batched(group, pts, sc),
+                 msm.msm_plain(curve.ops_for(group), pts, sc))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k3_digit_boundaries(dev, group):
+    """Digits 0x7F, 0x80, 0xFF (the bucket edges) in low, middle and high
+    windows, and r - 1."""
+    vals = [0x7F, 0x80, 0xFF, FR_MOD - 1, 0x7F << 240, 0x80 << 120, 0xFF << 8,
+            int("80" * 31, 16), int("FF" * 31, 16)]
+    pts = msm.fixed_base_msm(group, _elems((len(vals),), 7).to(dev))
+    sc = limb.to_device(limb.ints_to_limbs(vals + vals[::-1]), dev).reshape(2, len(vals), 16)
+    got = msm.msm_batched(group, pts, sc)
+    assert _same(group, got, msm.msm_plain(curve.ops_for(group), pts, sc))
+    gen, mul = (G1_GEN, g1_mul) if group == "g1" else (G2_GEN, g2_mul)
+    ks = limb.limb_rows_to_ints(_elems((len(vals),), 7).numpy())
+    want = None
+    add = curve_ref_add(group)
+    for s, k in zip(vals, ks):
+        want = add(want, mul(gen, s * k % FR_MOD))
+    assert curve.to_affine_host(curve.ops_for(group).name, tuple(c[0] for c in got)) == want
+
+
+def test_k3_layout_and_affine_kernels_match_plain(dev):
+    lib = _build.lib("msm_g1.cu")
+    counts = torch.from_numpy(np.random.default_rng(8).integers(0, 3000, 2 * 256)
+                              .astype(np.int32)).to(dev)
+    segs = msm.level_segs(32 * 3000)
+    P, cursor = msm._layout_cuda(lib, counts, segs, _build.stream_ptr(counts))
+    want = msm.segment_layout_plain(counts, segs)
+    assert torch.equal(P, want) and torch.equal(cursor, want[0, :-1])
+    for group in ("g1", "g2"):
+        ops = curve.ops_for(group)
+        pts = msm.fixed_base_msm(group, _elems((50,), 9).to(dev))
+        pts = curve.point_add(ops, pts, tuple(c.roll(1, 0) for c in pts))  # Z != 1
+        pts[2][3] = 0  # infinity -> (0, 0)
+        assert torch.equal(msm.affine_bases(group, pts), msm.affine_bases_plain(group, pts))
 
 
 def test_toy_slice_on_card_equals_cpu(dev):
