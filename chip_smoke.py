@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # from the repo root
     python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 breakdown
+    python3 chip_smoke.py --k4             # phase 1, then K4's times alone
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
@@ -14,8 +15,12 @@ Phases (any failure exits non-zero; there is no CPU run):
      K2 at the h stage's shapes (K2 also at k = 1, 5, 11, 13, with and
      without the folded bit reversal), K3 and K4 on the edge cases
      (infinity, doubling, cancel, zero scalars; for K3 also the digits
-     0x7F, 0x80, 0xFF, r - 1 and an all-ones batch of 3 bucket-sum levels).
-     Both versions are timed with CUDA events.
+     0x7F, 0x80, 0xFF, r - 1 and an all-ones batch of 3 bucket-sum levels;
+     for K4 also the top digit 0x30, a scalar with only window 31 nonzero,
+     an all-zero batch and m = 1). K4's window table (built on the card,
+     cache cleared, median of 3 builds as the caller sees them, and the
+     median of 3 of its kernels' time alone) is held against its plain
+     version. Both versions are timed with CUDA events.
   3. the main path at full width: build_spend_cs, setup at domain 2^18, a
      batch-16 Spend witness on the card, one warm-up and two timed
      prove_batch calls, host verification of 4 proofs (and rejection with a
@@ -26,8 +31,20 @@ Phases (any failure exits non-zero; there is no CPU run):
      to the host); K3's time per launch for each of the five MSMs; the five
      MSMs at B = 16 (proofs 0 and 15 against the plain version) and every
      query point of the setup (against the plain version over the setup's
-     scalars).
-Then one JSON line per kernel table and, last, the device line."""
+     scalars); K4's two setup calls (G1, G2) timed, median of 3, beside
+     two bounds: a mixed add per nonzero digit after each scalar's first
+     (this design's least count) and a full add per nonzero digit (the first
+     port's count).
+Then one JSON line per kernel table and, last, the device line.
+
+--k4 times K4 through entry points every tree of the port has
+(msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
+this script in the root of an older tree times that tree's K4 the same way:
+per group, the table's build as the caller sees it (cache cleared, host
+work included, median of 3) and the setup's call (median of 3), after a
+check of the edge scalars against the plain version; one JSON line. In
+this mode a ptxas spill is printed and does not fail the run: the first
+port's G2 table kernel spilled."""
 
 from __future__ import annotations
 
@@ -149,7 +166,7 @@ def main():
         fail(f"pob_tpu_torch not importable (run from the repo root): {e}")
 
     from pob_tpu_torch.field import cuda_mont, limb
-    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.field.ref import FQ_MOD, FR_MOD
     from pob_tpu_torch.prover import curve, groth16, msm, ntt
     from pob_tpu_torch.r1cs.spend_circuit import assemble_witness, build_spend_cs, spend_witness
 
@@ -168,9 +185,11 @@ def main():
     for src, kernels in ptxas.items():
         log(f"ptxas {src}: " + ", ".join(f"{k} {r} regs {ss}/{sl} B spill st/ld"
                                          for k, r, ss, sl in kernels))
-    spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu")
+    spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
               for k, _, ss, sl in ptxas[src] if ss or sl]
-    log("K2/K3 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
+    log("K2/K3/K4 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
+    if spills and "--k4" not in sys.argv[1:]:  # --k4 also times older trees, whose K4 spilled
+        fail(f"ptxas spills registers in {', '.join(spills)}")
     if "--msm-breakdown" in sys.argv[1:]:
         args, _ = spend_batch(dev, 16)
         cs = build_spend_cs()
@@ -200,6 +219,12 @@ def main():
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
+    def median_ms(fn, reps=3):
+        """Median of reps calls of fn after a warm-up, each timed with CUDA
+        events."""
+        fn()
+        return sorted(once_ms(fn)[1] for _ in range(reps))[reps // 2]
+
     def exact(name, a, b):
         if a.shape != b.shape or not torch.equal(a, b):
             bad = (a != b).any(-1).nonzero()[:4].tolist() if a.shape == b.shape else "shape"
@@ -222,6 +247,29 @@ def main():
         if not bool(eq.all()):
             fail(f"{name}: kernel and plain version differ (first points "
                  f"{(~eq).nonzero().squeeze(1)[:4].tolist()})")
+
+    def build_table(group):
+        """K4's window table built anew, as setup's first call builds it."""
+        msm.window_table.cache_clear()
+        return msm.window_table(group, str(dev))
+
+    # K4's two setup calls: the G1 queries in one call, b2 on G2
+    k4_calls = (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",)))
+    # K4 edges: 0, 1, r - 1, the largest top digit 0x30, only window 31 nonzero
+    k4_edges = limb.to_device(limb.ints_to_limbs(
+        [0, 1, FR_MOD - 1, 0x30 << 248, 0x17 << 248]), dev)
+    if "--k4" in sys.argv[1:]:
+        _, sc_host, _ = groth16.setup_scalars(build_spend_cs(), TOXIC)
+        out = {"card": card}
+        for group, names in k4_calls:
+            same_points(f"K4 {group} edges", group, msm.fixed_base_msm(group, k4_edges),
+                        msm.fixed_base_plain(group, k4_edges))
+            sc = limb.to_device(limb.ints_to_limbs([x for q in names for x in sc_host[q]]), dev)
+            out[group] = {"n": sc.shape[0],
+                          "table_build_ms": median_ms(lambda: build_table(group)),
+                          "call_ms": median_ms(lambda: msm.fixed_base_msm(group, sc))}
+        log("k4 " + json.dumps(out))
+        return
 
     rows = []
 
@@ -258,7 +306,7 @@ def main():
     km, pm, (bms, by) = k1_fr
     rows.append({"name": "K1 mont (Fr mul)", "route": "cuda",
                  "source": "pob_tpu_torch/csrc/mont.cu",
-                 "replaces": "pob_tpu/field/pallas_mont.py:106",
+                 "replaces": "pob_tpu/field/pallas_mont.py:107",
                  "launches": 0, "max_abs_err": max(k1.values()), "ms": km,
                  "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                  "library_ms": None, "shape": f"{n_fr} Fr pairs"})
@@ -313,14 +361,33 @@ def main():
     # ---------------- K4 and K3 on the edge cases ----------------
     # (K4 is checked first: K3's points come from it.) Both are checked again
     # at the main path's shapes, on its own inputs, after the main path.
+    k4_table = {}
     for group in ("g1", "g2"):
+        build_ms = median_ms(lambda: build_table(group))
+        launch_ms = []  # (doublings ms, entries ms) of 3 more builds
+        for _ in range(3):
+            timing = []
+            msm.fixed_base_table_cuda(group, dev, timing)
+            torch.cuda.synchronize()
+            launch_ms.append(tuple(a.elapsed_time(b) for _, a, b in timing))
+        dbl_ms, tab_ms = sorted(launch_ms, key=sum)[1]
+        plain_table, plain_table_ms = once_ms(lambda: msm.fixed_base_table_plain(group, dev))
+        exact(f"K4 {group} window table", msm.window_table(group, str(dev)), plain_table)
+        k4_table[group] = (dbl_ms + tab_ms, build_ms, plain_table_ms)
         sc = rand_elems((1 << 10,))
-        sc[:3] = limb.to_device(limb.ints_to_limbs([0, 1, FR_MOD - 1]), dev)
+        sc[:k4_edges.shape[0]] = k4_edges
         (kern, km), (plain, pm) = (once_ms(lambda: msm.fixed_base_msm(group, sc)),
                                    once_ms(lambda: msm.fixed_base_plain(group, sc)))
         same_points(f"K4 {group}", group, kern, plain)
-        log(f"K4 {group} m={sc.shape[0]} exact (incl. scalars 0, 1, r-1): kernel_ms {km:.4f} "
-            f"plain_ms {pm:.4f}")
+        for name, few in (("all-zero batch", torch.zeros_like(sc[:64])), ("m = 1", sc[3:4])):
+            same_points(f"K4 {group} {name}", group, msm.fixed_base_msm(group, few),
+                        msm.fixed_base_plain(group, few))
+        log(f"K4 {group} window table (8192 packed affine entries) exact; build_ms (cache "
+            f"cleared, median of 3, host work included) {build_ms:.4f}; kernels alone "
+            f"(median of 3) {dbl_ms + tab_ms:.4f} (doublings {dbl_ms:.4f}, entries "
+            f"{tab_ms:.4f}); plain_ms {plain_table_ms:.4f}")
+        log(f"K4 {group} m={sc.shape[0]} exact (incl. scalars 0, 1, r-1, 0x30 << 248, "
+            f"0x17 << 248; an all-zero batch; m = 1): kernel_ms {km:.4f} plain_ms {pm:.4f}")
 
     s_star = limb.to_device(limb.ints_to_limbs([0x30 << 248]), dev)[0]
     for group, m in (("g1", 1 << 12), ("g2", 1 << 10)):
@@ -366,6 +433,7 @@ def main():
     batch = 16
     args, pubs = spend_batch(dev, batch)
 
+    msm.window_table.cache_clear()  # setup builds K4's table, as a user's first setup does
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -420,7 +488,7 @@ def main():
     log(f"verify: 4 proofs accepted, 4 tampered publics rejected "
         f"({time.perf_counter() - t0:.1f} s on the host)")
 
-    for key in ("mont", "ntt", "msm", "fixed_base"):
+    for key in _build.LAUNCHES:
         if counts[key] <= 0:
             fail(f"kernel {key} was not launched on the main path")
     log("slice " + json.dumps({"setup_s": setup_s, "witness_s": witness_s, **mean,
@@ -472,7 +540,7 @@ def main():
     _, sc_host, _ = groth16.setup_scalars(cs, TOXIC)
     ic_pts = curve.g1_points_to_device(vk.ic, dev)
     chunk = 1 << 16
-    for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):
+    for group, names in k4_calls:
         sc = limb.to_device(limb.ints_to_limbs([x for q in names for x in sc_host[q]]), dev)
         kern = tuple(torch.cat(cs_, 0) for cs_ in zip(
             *[ic_pts if q == "ic" else getattr(pk, q) for q in names]))
@@ -482,23 +550,58 @@ def main():
             pm += ms
             same_points(f"K4 {group} setup queries [{o}, {o + chunk})", group,
                         tuple(c[o:o + chunk] for c in kern), plain)
-        km = cuda_ms(lambda: msm.fixed_base_msm(group, sc), 3)
-        nz = int((msm.scalar_digits(sc) != 0).sum())
+        km = median_ms(lambda: msm.fixed_base_msm(group, sc))
         n4 = sc.shape[0]
-        bms, by = bound(n4 * 64 + n4 * 3 * COORD_BYTES[group]
-                        + 8192 * 3 * COORD_BYTES[group], nz * ADD_MULS[group])
-        log(f"K4 {group} setup queries {'+'.join(names)} (n={n4}): exact; kernel_ms {km:.3f} "
-            f"plain_ms {pm:.3f} bound_ms {bms:.3f} ({by})")
-        if group == "g1":
-            rows.append({"name": "K4 fixed_base (G1 window, the setup's G1 queries)",
-                         "route": "cuda", "source": "pob_tpu_torch/csrc/fixed_base.cu",
-                         "replaces": "pob_tpu/prover/msm.py:248", "launches": 0,
-                         "max_abs_err": 0, "ms": km, "plain_ms": pm, "bound_ms": bms,
-                         "bound_by": by, "library_ms": None, "shape": f"{n4} G1 scalars"})
+        dig = msm.scalar_digits(sc) != 0
+        nz, nz_scalars = int(dig.sum()), int(dig.any(-1).sum())
+        nbytes = n4 * 64 + n4 * 3 * COORD_BYTES[group] + 8192 * 2 * COORD_BYTES[group] // 2
+        bms, by = bound(nbytes, (nz - nz_scalars) * MADD_MULS[group])
+        bms_full, _ = bound(nbytes, nz * ADD_MULS[group])
+        log(f"K4 {group} setup queries {'+'.join(names)} (n={n4}, {n4 - nz_scalars} zero, "
+            f"{nz} nonzero digits): exact; kernel_ms {km:.3f} (median of 3) plain_ms {pm:.3f} "
+            f"bound_ms {bms:.3f} ({by}; a mixed add per nonzero digit after the first) "
+            f"{bms_full:.3f} (a full add per nonzero digit)")
+        rows.append({"name": f"K4 fixed_base ({group.upper()} window, the setup's "
+                             f"{group.upper()} queries)", "key": "fixed_base",
+                     "route": "cuda", "source": "pob_tpu_torch/csrc/fixed_base.cu",
+                     "replaces": "pob_tpu/prover/msm.py:248", "launches": 0,
+                     "max_abs_err": 0, "ms": km, "plain_ms": pm, "bound_ms": bms,
+                     "bound_by": by, "bound_ms_full_adds": bms_full, "library_ms": None,
+                     "shape": f"{n4} {group.upper()} scalars"})
+    for group in ("g1", "g2"):
+        table_ms, build_ms, plain_table_ms = k4_table[group]
+        # The least work: 255 doublings, then per entry (w, v), v > 0,
+        # popcount(v) - 1 adds, 3 coordinate products as its share of one
+        # batched inversion of every Z (Montgomery's trick) and the products
+        # to affine (G1 4, G2 11 Fq products); plus that one inversion (fe_inv:
+        # 253 squarings and a product per set bit of q - 2 below bit 253; on
+        # G2 4 Fq products around it). The kernel inverts each entry's Z on
+        # its own: bound_ms_inv_per_entry counts that.
+        entries = 32 * 255
+        adds = 32 * sum(bin(v).count("1") - 1 for v in range(1, 256))
+        inv = 253 + bin((FQ_MOD - 2) & ((1 << 253) - 1)).count("1") + (4 if group == "g2" else 0)
+        coord_mul = 1 if group == "g1" else 3  # Fq products in one coordinate product
+        to_affine = 4 if group == "g1" else 11
+        chain = 255 * DBL_MULS[group] + adds * ADD_MULS[group]
+        nbytes = 8192 * COORD_BYTES[group] + 3 * COORD_BYTES[group]
+        bms, by = bound(nbytes, chain + entries * (3 * coord_mul + to_affine) + inv)
+        bms_inv, _ = bound(nbytes, chain + entries * (inv + to_affine))
+        log(f"K4 {group} table bound_ms {bms:.4f} ({by}; one batched inversion) "
+            f"{bms_inv:.4f} (an inversion per entry, as the kernel does)")
+        rows.append({"name": f"K4 fixed_base table ({group.upper()}: doublings, 8192 entries)",
+                     "key": "fixed_base_table", "route": "cuda",
+                     "source": "pob_tpu_torch/csrc/fixed_base.cu",
+                     "replaces": "pob_tpu/prover/groth16.py:131", "launches": 0,
+                     "max_abs_err": 0, "ms": table_ms, "build_ms": build_ms,
+                     "plain_ms": plain_table_ms, "bound_ms": bms, "bound_by": by,
+                     "bound_ms_inv_per_entry": bms_inv, "library_ms": None,
+                     "shape": f"32 x 256 {group.upper()} entries"})
 
-    for key, row in zip(("mont", "ntt", "msm", "fixed_base"), rows):
-        row["launches"] = counts[key]
-        row["launches_per_prove"] = per_prove[key]
+    for key, row in zip(("mont", "ntt", "msm"), rows):
+        row["key"] = key
+    for row in rows:
+        row["launches"] = counts[row["key"]]
+        row["launches_per_prove"] = per_prove[row.pop("key")]
 
     log(json.dumps({"kernels": rows}))
     log(f"{card}")

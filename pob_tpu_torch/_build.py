@@ -31,7 +31,7 @@ SOURCES = ("mont.cu", "ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont": 0, "ntt": 0, "msm": 0, "fixed_base": 0}
+LAUNCHES = {"mont": 0, "ntt": 0, "msm": 0, "fixed_base": 0, "fixed_base_table": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -53,8 +53,9 @@ _ARGTYPES = {
         "pob_msm_shifted_bases": [_P, _P, _P, _L, _P, _P],
     } for src in ("msm_g1.cu", "msm_g2.cu")},
     "fixed_base.cu": {
-        "pob_fb_scalar_mul": [_I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
-        "pob_fb_window": [_I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+        "pob_fb_doublings": [_I, _P, _P, _P, _P, _P],
+        "pob_fb_table": [_I, _P, _P, _P],
+        "pob_fb_window": [_I, _P, _P, _L, _P, _P, _P, _P],
     },
 }
 
@@ -139,14 +140,15 @@ def parse_ptxas(text: str) -> list:
 
 def _demangle(sym: str) -> str:
     """`_Z16bucket_sum_kernelI2FeE...` -> `bucket_sum_kernel<Fe>` (the
-    kernel's name and, for a template on the coordinate type, Fe or Fq2)."""
+    kernel's name and, for a template on the coordinate type, Fe or Fq2,
+    then its int arguments: `window_kernel<Fe,128,3>`)."""
     m = re.match(r"_Z(\d+)", sym)
     if not m:
         return sym
     n, rest = int(m.group(1)), sym[m.end():]
     name, rest = rest[:n], rest[n:]
     if rest.startswith("I"):
-        targs = re.findall(r"(Fq2|Fe)E", rest[:16])
+        targs = re.findall(r"\d(Fq2|Fe)E", rest[:24])
         ints = re.findall(r"Li(\d+)E", rest[:32])
         name += "<" + ",".join(targs[:1] + ints) + ">"
     return name

@@ -11,12 +11,14 @@ version for CPU tensors only and launch the kernel for CUDA tensors.
   summed by sort and pairwise adds (``segment_sum``), then per bit
   position and a binary-tree Horner.
 - K4 ``fixed_base_msm`` (``csrc/fixed_base.cu``): k_i G for every scalar,
-  through the window table T[w][v] = v 2^(8w) G. Plain version
-  ``fixed_base_plain``: the table entries the digits use, each summed from
-  the plain doublings 2^e G, then summed per scalar by ``segment_sum``.
+  by mixed adds from the window table T[w][v] = v 2^(8w) G, kept as packed
+  affine points (``window_table``, built on the card from the doublings
+  2^j G). Plain versions: ``fixed_base_plain``, the table entries the
+  digits use, each summed from the plain doublings 2^e G, then summed per
+  scalar by ``segment_sum``; ``fixed_base_table_plain`` for the table.
 
-Both plain versions do work in proportion to the nonzero digits, so they
-can check the kernels at the main path's sizes."""
+msm_plain and fixed_base_plain do work in proportion to the nonzero digits,
+so they can check the kernels at the main path's sizes."""
 
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from .. import _build
 from ..field import limb
-from ..field.ref import FQ_MOD, FR_MOD, G1_GEN, G2_GEN
+from ..field.ref import FQ_MOD, G1_GEN, G2_GEN
 from . import curve
 
 WINDOW_BITS = 8
@@ -239,14 +241,32 @@ def pack_words(limbs):
 
 
 def _fq_inv_plain(a):
-    """a^(q-2) in Montgomery form by square-and-multiply; 0 maps to 0."""
+    """a^-1 for every element of a (..., 16), Montgomery form in and out; 0
+    maps to 0. Montgomery's trick over a product tree: pairwise products up
+    to one root, one square-and-multiply root^(q-2), and the inverses back
+    down (a zero stands in as one, then gives 0)."""
+    shape = a.shape
+    a = a.reshape(-1, limb.L)
+    zero = (a == 0).all(-1, keepdim=True)
+    one = torch.from_numpy(limb.int_to_limbs((1 << 256) % FQ_MOD)).to(a.device)
+    top, levels = torch.where(zero, one, a), []
+    while top.shape[0] > 1:
+        if top.shape[0] % 2:
+            top = torch.cat([top, one[None]], 0)
+        levels.append(top)
+        top = limb.mont_mul_plain(limb.FQ, top[0::2], top[1::2])
     e = FQ_MOD - 2
-    r = a
+    inv = top
     for bit in range(e.bit_length() - 2, -1, -1):
-        r = limb.mont_mul_plain(limb.FQ, r, r)
+        inv = limb.mont_mul_plain(limb.FQ, inv, inv)
         if (e >> bit) & 1:
-            r = limb.mont_mul_plain(limb.FQ, r, a)
-    return r
+            inv = limb.mont_mul_plain(limb.FQ, inv, top)
+    for lv in reversed(levels):  # 1 / x_j = (1 / (x_j x_sibling)) x_sibling
+        sibling = lv.reshape(-1, 2, limb.L).flip(1).reshape(-1, limb.L)
+        inv = limb.mont_mul_plain(limb.FQ, inv[:lv.shape[0] // 2].repeat_interleave(2, 0),
+                                  sibling)
+    inv = inv[:a.shape[0]]
+    return torch.where(zero, torch.zeros_like(inv), inv).reshape(shape)
 
 
 def _coord_inv_plain(group: str, a):
@@ -269,7 +289,15 @@ def affine_bases_plain(group: str, points):
     shifted = [points]
     for _ in range(N_WINDOWS - 1):
         shifted.append(curve.times_pow2(ops, shifted[-1], WINDOW_BITS))
-    x, y, z = (torch.cat(cs, 0) for cs in zip(*shifted))
+    return _packed_affine(group, tuple(torch.cat(cs, 0) for cs in zip(*shifted)))
+
+
+def _packed_affine(group: str, points):
+    """(n,) Jacobian -> (n, 16) (G1) or (n, 32) (G2) int32: the packed words
+    of x then y, affine, Montgomery form; infinity gives (0, 0), since the
+    inverse of Z = 0 is 0."""
+    ops = curve.ops_for(group)
+    x, y, z = points
     zi = _coord_inv_plain(group, z)
     zi2 = ops.sqr(zi)
     ax, ay = ops.mul(x, zi2), ops.mul(y, ops.mul(zi2, zi))
@@ -307,9 +335,9 @@ def msm_batched(group: str, points, scalars, bases=None, timing=None):
     return msm_plain(curve.ops_for(group), points, scalars)
 
 
-def _launch(timing, label, fn, *args):
-    """Launch one K3 kernel: count it, time it into `timing` if that is a
-    list, raise on a launch error."""
+def _launch(timing, label, fn, *args, key="msm"):
+    """Launch one kernel (K3's, or K4's with its `key` in LAUNCHES): count
+    it, time it into `timing` if that is a list, raise on a launch error."""
     if timing is not None:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -317,7 +345,7 @@ def _launch(timing, label, fn, *args):
     if timing is not None:
         ev[1].record()
         timing.append((label, *ev))
-    _build.LAUNCHES["msm"] += 1
+    _build.LAUNCHES[key] += 1
     _build.check(rc, label)
 
 
@@ -392,35 +420,72 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
 # ---------------------------------------------------------------------------
 
 
-def _fb_launch(fn_name: str, group: str, base, scalars):
-    scalars = scalars.contiguous()
-    _check_points(group, base)
-    _build.check_cuda(scalars)
-    n = scalars.shape[0]
-    out = _empty_points(group, n, scalars.device)
-    if n:
-        rc = getattr(_build.lib("fixed_base.cu"), fn_name)(
-            _GROUP_ID[group], *_ptrs(base), scalars.data_ptr(), n, *_ptrs(out),
-            _build.stream_ptr(scalars))
-        _build.LAUNCHES["fixed_base"] += 1
-        _build.check(rc, fn_name)
-    return out
+TABLE_ROWS = N_WINDOWS * N_BUCKETS  # K4's window table: row w * 256 + v
+
+
+def fixed_base_table_plain(group: str, device, windows=range(N_WINDOWS)):
+    """Plain version of K4's table kernels: (8192, 16) (G1) or (8192, 32)
+    (G2) int32, row w * 256 + v the packed affine words of v 2^(8w) G
+    (as affine_bases_plain packs them; (0, 0) for v = 0), each entry the
+    sum of the doublings 2^(8w + b) G over the set bits b of v. With
+    `windows`, only those windows' rows, in that order (256 each)."""
+    ops = curve.ops_for(group)
+    dbl = _doublings(group, str(device))
+    w = torch.as_tensor(list(windows), device=device)
+    e = (w[:, None] * N_BUCKETS + torch.arange(N_BUCKETS, device=device)).flatten()
+    bits = (e[:, None] >> torch.arange(WINDOW_BITS, device=device)) & 1  # bits of v
+    k, b = bits.nonzero(as_tuple=True)  # sorted by k
+    keys, sums = segment_sum(ops, k, tuple(c[(e[k] >> WINDOW_BITS) * WINDOW_BITS + b]
+                                           for c in dbl))
+    return _packed_affine(group, _scatter(ops, e.shape[0], keys, sums, device))
+
+
+def fixed_base_table_cuda(group: str, device, timing=None):
+    """K4's table kernels: the 255 doublings 2^j G by one warp, then one
+    thread per entry (at most 7 adds and one inversion). Returns
+    fixed_base_table_plain's table. A list given as `timing` gets one
+    (label, start, end) CUDA-event triple per launch."""
+    gen = curve.points_to_device(group, [G1_GEN if group == "g1" else G2_GEN], device)
+    width = _bases_width(group)
+    dbl = torch.empty((N_BUCKETS, 3 * width // 2), dtype=torch.int32, device=device)
+    table = torch.empty((TABLE_ROWS, width), dtype=torch.int32, device=device)
+    lib, stream = _build.lib("fixed_base.cu"), _build.stream_ptr(table)
+    _launch(timing, "doublings", lib.pob_fb_doublings, _GROUP_ID[group], *_ptrs(gen),
+            dbl.data_ptr(), stream, key="fixed_base_table")
+    _launch(timing, "table", lib.pob_fb_table, _GROUP_ID[group], dbl.data_ptr(),
+            table.data_ptr(), stream, key="fixed_base_table")
+    return table
 
 
 @functools.lru_cache(maxsize=8)
 def window_table(group: str, device: str):
-    """(8192, ...) Jacobian T[w * 256 + v] = v * 2^(8w) * G, made on the card
-    by K4's double-and-add kernel (v = 0 entries are infinity)."""
-    gen = curve.points_to_device(group, [G1_GEN if group == "g1" else G2_GEN], device)
-    ks = [v * pow(2, WINDOW_BITS * w, FR_MOD) % FR_MOD
-          for w in range(N_WINDOWS) for v in range(N_BUCKETS)]
-    return _fb_launch("pob_fb_scalar_mul", group, gen,
-                      limb.to_device(limb.ints_to_limbs(ks), device))
+    """K4's window table on the card `device`, made once per group and
+    device by fixed_base_table_cuda."""
+    return fixed_base_table_cuda(group, device)
+
+
+def fixed_base_window_cuda(group: str, table, scalars):
+    """K4's window kernel: (m, 16) canonical scalars on the card -> (m,)
+    Jacobian k_i G, a mixed add from `table` (window_table) per nonzero
+    digit after the first."""
+    scalars = scalars.contiguous()
+    _build.check_cuda(table, scalars)
+    if tuple(table.shape) != (TABLE_ROWS, _bases_width(group)):
+        raise ValueError(f"table must be window_table's, got {tuple(table.shape)}")
+    if scalars.dim() != 2 or scalars.shape[1] != limb.L:
+        raise ValueError(f"scalars must be (m, 16), got {tuple(scalars.shape)}")
+    n = scalars.shape[0]
+    out = _empty_points(group, n, scalars.device)
+    if n:
+        _launch(None, "window", _build.lib("fixed_base.cu").pob_fb_window, _GROUP_ID[group],
+                table.data_ptr(), scalars.data_ptr(), n, *_ptrs(out),
+                _build.stream_ptr(scalars), key="fixed_base")
+    return out
 
 
 def fixed_base_msm(group: str, scalars):
     """k_i * G for (m, 16) canonical Fr scalars -> (m,) Jacobian points."""
     if scalars.is_cuda:
-        return _fb_launch("pob_fb_window", group, window_table(group, str(scalars.device)),
-                          scalars)
+        return fixed_base_window_cuda(group, window_table(group, str(scalars.device)),
+                                      scalars)
     return fixed_base_plain(group, scalars)

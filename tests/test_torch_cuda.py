@@ -77,6 +77,30 @@ def test_k3_k4_match_plain(dev, group, m):
     assert curve.to_affine_host_batch(ops.name, got) == curve.to_affine_host_batch(ops.name, want)
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k4_table_matches_plain(dev, group):
+    """K4's table kernels against their plain version on all 8192 entries."""
+    msm.window_table.cache_clear()
+    table = msm.window_table(group, str(dev))
+    assert torch.equal(table, msm.fixed_base_table_plain(group, dev))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k4_edge_scalars(dev, group):
+    """0, 1, r - 1, the largest top digit 0x30 << 248, a scalar whose only
+    nonzero digit is in window 31, an all-zero batch and m = 1."""
+    vals = [0, 1, FR_MOD - 1, 0x30 << 248, 0x17 << 248, 0xFF, 0x80 << 128]
+    gen, mul = (G1_GEN, g1_mul) if group == "g1" else (G2_GEN, g2_mul)
+    sc = torch.cat([limb.to_device(limb.ints_to_limbs(vals), dev), _elems((100,), 10).to(dev)])
+    got = msm.fixed_base_msm(group, sc)
+    assert _same(group, got, msm.fixed_base_plain(group, sc))
+    assert curve.to_affine_host_batch(curve.ops_for(group).name, tuple(c[:len(vals)]
+                                                                      for c in got)) == [
+        mul(gen, s) if s else None for s in vals]
+    for few in (torch.zeros_like(sc[:64]), sc[3:4]):
+        assert _same(group, msm.fixed_base_msm(group, few), msm.fixed_base_plain(group, few))
+
+
 @pytest.mark.parametrize("k", [5, 11, 13])
 def test_k2_passes_match_plain(dev, k):
     """Below one tile (k = 5) and with two unevenly split passes (11, 13),

@@ -128,4 +128,5 @@ def test_kernel_paths_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tm.pippenger_cuda("g1", pts, sc)
     with pytest.raises(ValueError):
-        tm._fb_launch("pob_fb_window", "g1", pts, sc[0])
+        tm.fixed_base_window_cuda("g1", torch.zeros(tm.TABLE_ROWS, 16, dtype=torch.int32),
+                                  sc[0])
