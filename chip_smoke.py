@@ -35,7 +35,29 @@ Phases (any failure exits non-zero; there is no CPU run):
      two bounds: a mixed add per nonzero digit after each scalar's first
      (this design's least count) and a full add per nonzero digit (the first
      port's count).
-Then one JSON line per kernel table and, last, the device line.
+  5. the ProofOfBurn path at bench.py's PoB size (TEST_CONFIG: 3,966,130
+     constraints, domain 2^22, batch 4), with the Spend objects freed:
+     build_pob_cs, setup on the card (host scalars, K4, the key's affine
+     bases timed apart), a batch-4 witness made on the card from the fixture
+     as bench.py makes it (proof_extra_commitment = pec0 + 1 + i, wire 1
+     held against pob_expected_commitment), one warm-up prove stage by stage
+     and two timed prove_batch calls, 4 proofs verified and 4 tampered
+     publics rejected; launch counters zeroed before and read after, each
+     kernel must have run; peak device memory through setup, the witness,
+     the h stage and the MSM stage; the witness again by part (a cProfile
+     of it gives the hash traces' share). Then every kernel on this path's
+     own inputs against its plain version, each row's numbers from one
+     input: K1 on the h stage's product A.W x B.W (4 x 2^22); K2 on its
+     first transform, intt(A.W) (4 rows x 2^22, three passes; also one
+     random row at k = 20 and 21); K3 on the whole a-MSM of proof 0 and on
+     the B = 4 h- and b2-MSMs with scalars kept at 65,536 positions spread
+     over [0, m), the last included, and the full h-MSM timed beside its
+     bound; K4: the setup's query points at 65,536 positions per group
+     against the plain version over the setup's own scalars (computed again
+     on the host), and the K4 call over all of them timed. One `pob {...}`
+     JSON line.
+Then the kernel table as one JSON line (Spend rows with their launches on
+both paths, then the PoB rows), the card, and last, the device line.
 
 --k4 times K4 through entry points every tree of the port has
 (msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
@@ -48,6 +70,7 @@ port's G2 table kernel spilled."""
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -153,6 +176,428 @@ def msm_breakdown(torch, msm, msms) -> dict:
     return out
 
 
+def make_rand(dev, seed: int):
+    """rand_elems(shape): random canonical elements (< p of Fr and Fq: top
+    limb < 0x3064) on dev, from a generator seeded with seed."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand_elems(shape, top=0x3000):
+        x = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x[..., 15] %= top
+        return x
+
+    return rand_elems
+
+
+def cuda_ms(fn, reps=3):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def median_ms(fn, reps=3):
+    """Median of reps calls of fn after a warm-up, each timed with CUDA
+    events."""
+    fn()
+    return sorted(once_ms(fn)[1] for _ in range(reps))[reps // 2]
+
+
+def exact(name, a, b):
+    import torch
+
+    if a.shape != b.shape or not torch.equal(a, b):
+        bad = (a != b).any(-1).nonzero()[:4].tolist() if a.shape == b.shape else "shape"
+        fail(f"{name}: kernel and plain version differ (first rows {bad})")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def once_ms(fn):
+    """One call of fn, timed with CUDA events: (result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def same_points(name, group, p, q):
+    """Kernel points p against plain points q, as affine points."""
+    from pob_tpu_torch.prover import curve
+
+    eq = curve.points_equal(curve.ops_for(group), p, q)
+    if not bool(eq.all()):
+        fail(f"{name}: kernel and plain version differ (first points "
+             f"{(~eq).nonzero().squeeze(1)[:4].tolist()})")
+
+
+POB_BATCH = 4  # bench.py's BENCH_POB_BATCH
+POB_SAMPLE = 1 << 16  # positions kept in the sampled K3 and K4 checks
+POB_K4_CHUNK = 1 << 14  # sampled K4 scalars per plain call (its G2 sums' memory)
+POB_K2_MORE = (20, 21)  # K2 also at these k, one random row each (2 and 3 passes)
+
+
+def pob_batch(cfg, dev, batch: int):
+    """PoB witness inputs as bench.py derives them from the fixture
+    (proof_extra_commitment = pec0 + 1 + i): (kwargs on the card, expected
+    public commitments)."""
+    from pob_tpu_torch.field import limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.harness.inputs import (batch_stack, load_pob_input,
+                                              pob_expected_commitment, to_device)
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "pob_input.json")
+    with open(fix) as f:
+        raw = json.load(f)
+    base = load_pob_input(raw, cfg)
+    pecs = [(int(raw.get("_proofExtraCommitment", 0)) + 1 + i) % FR_MOD for i in range(batch)]
+    cases = [dict(base, proof_extra_commitment=limb.int_to_limbs(p)) for p in pecs]
+    return (to_device(batch_stack(cases), dev),
+            [pob_expected_commitment(dict(raw, _proofExtraCommitment=p), cfg) for p in pecs])
+
+
+def timed(fn):
+    """One call of fn on the host clock, synchronized: (result, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def witness_parts(cfg, cs, kw) -> dict:
+    """A second PoB witness on the same inputs, by part: the blocks
+    (pob_r1cs_witness) and their assembly, synchronized; then a third
+    pob_r1cs_witness under cProfile, with the cumulative seconds of the
+    hash traces it calls (witness.keccak_f_trace, witness.poseidon_trace)
+    beside the call's own (host clock, the profiler's overhead included)."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from pob_tpu_torch.r1cs import witness as wit
+    from pob_tpu_torch.r1cs.pob_circuit import pob_r1cs_witness
+    from pob_tpu_torch.r1cs.spend_circuit import assemble_witness
+
+    blocks, blocks_s = timed(lambda: pob_r1cs_witness(cfg, **kw))
+    _, assemble_s = timed(lambda: assemble_witness(cs, blocks))
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    pob_r1cs_witness(cfg, **kw)
+    torch.cuda.synchronize()
+    prof.disable()
+    cum = {}
+    for (path, _, fn), (_, _, _, ct, _) in pstats.Stats(prof).stats.items():
+        if path == wit.__file__ or fn == "pob_r1cs_witness":
+            cum[fn] = cum.get(fn, 0.0) + ct
+    return {"blocks": blocks_s, "assemble": assemble_s,
+            "profiled": {k: cum.get(k, 0.0) for k in ("pob_r1cs_witness", "keccak_f_trace",
+                                                       "poseidon_trace")}}
+
+
+def spread_positions(n: int, count: int):
+    """count positions spread evenly over [0, n), 0 and n - 1 included."""
+    import numpy as np
+
+    return np.unique(np.arange(count, dtype=np.int64) * (n - 1) // (count - 1))
+
+
+def pob_phase(dev, card):
+    """The ProofOfBurn path at bench.py's size (TEST_CONFIG, domain 2^22,
+    batch 4): build, setup, witness on the card, warm-up and timed proves,
+    verification; launch counts; peak device memory per stage; then each
+    kernel on this path's own inputs against its plain version: K1 and K2
+    on the h stage's (4, 2^22) tensors, K2 also at k = 20, 21, K3 on the
+    a-MSM of proof 0 and the B = 4 h- and b2-MSMs with scalars kept at
+    POB_SAMPLE positions, K4 on the setup's scalars at POB_SAMPLE positions
+    per group. Returns (the pob JSON object, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from pob_tpu_torch import _build
+    from pob_tpu_torch.circuits.proof_of_burn import TEST_CONFIG
+    from pob_tpu_torch.field import cuda_mont, limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import curve, groth16, msm, ntt
+    from pob_tpu_torch.r1cs.pob_circuit import build_pob_cs, pob_r1cs_witness
+    from pob_tpu_torch.r1cs.spend_circuit import assemble_witness
+
+    gb = {}
+
+    def peak(stage):
+        torch.cuda.synchronize()
+        gb[stage] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"PoB peak device memory through {stage}: {gb[stage]:.3f} GB "
+            f"(allocated now {torch.cuda.memory_allocated() / 1e9:.3f} GB)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"PoB phase starts with {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    msm.window_table.cache_clear()  # setup builds K4's table, as a user's first setup does
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cs = build_pob_cs(TEST_CONFIG)
+    build_cs_s = time.perf_counter() - t0
+    (ra, _, _), (rb, _, _), (rc, _, _), pal = cs.matrices_indexed()
+    nnz = {"A": len(ra), "B": len(rb), "C": len(rc)}
+    log(f"PoB build_pob_cs(TEST_CONFIG): {cs.num_constraints} constraints, {cs.num_wires} wires, "
+        f"nnz {nnz}, palette {len(pal)}, {build_cs_s:.3f} s")
+
+    st = {}
+    t0 = time.perf_counter()
+    pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if pk.k != 22:
+        fail(f"PoB domain is 2^{pk.k}, expected 2^22")
+    key_gb = sum(t.numel() * t.element_size() for t in pk.bases.values()) / 1e9
+    jac_gb = sum(c.numel() * c.element_size() for q, _ in groth16.MSM_QUERIES
+                 for c in getattr(pk, q)) / 1e9
+    mats_gb = sum(t.numel() * t.element_size() for m in pk.mats for t in m) / 1e9
+    log(f"PoB setup_s {setup_s:.3f} (host scalars {st['scalars_s']:.3f}, K4 {st['k4_s']:.3f}, "
+        f"attach_bases {st['bases_s']:.3f}, rest {setup_s - sum(st.values()):.3f}); key on the "
+        f"card: shifted bases {key_gb:.3f} GB, Jacobian queries {jac_gb:.3f} GB, matrices "
+        f"{mats_gb:.3f} GB")
+    peak("setup")
+    after_setup = dict(_build.LAUNCHES)
+
+    torch.cuda.reset_peak_memory_stats()
+    kw, pubs = pob_batch(TEST_CONFIG, dev, POB_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W = assemble_witness(cs, pob_r1cs_witness(TEST_CONFIG, **kw))
+    torch.cuda.synchronize()
+    witness_s = time.perf_counter() - t0
+    if limb.limb_rows_to_ints(W[:, 1].cpu().numpy()) != pubs:
+        fail("PoB witness wire 1 differs from pob_expected_commitment")
+    log(f"PoB witness_s {witness_s:.4f} (batch {POB_BATCH}, wire 1 == expected commitment)")
+    peak("witness")
+    after_witness = dict(_build.LAUNCHES)
+
+    rs = [(3000 + i, 4000 + i) for i in range(POB_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    h = groth16.compute_h(pk.k, pk.mats, W)  # the warm-up prove, stage by stage
+    peak("h stage")
+    torch.cuda.reset_peak_memory_stats()
+    sums = groth16.msm_stage(pk, W, h)
+    peak("MSM stage")
+    del sums
+    n = 1 << pk.k
+    (aw, ta), (bw, tb) = (timed(lambda: groth16.sparse_matvec_mont(m, W, n))
+                          for m in pk.mats[:2])
+    matvec_s = [ta, tb]
+    log(f"PoB h stage's sparse mat-vecs alone (synchronized): A {ta:.4f} s, B {tb:.4f} s")
+    before = dict(_build.LAUNCHES)
+    runs = []
+    for _ in range(2):
+        tm = {}
+        t0 = time.perf_counter()
+        proofs = groth16.prove_batch(pk, W, rs=rs, timings=tm)
+        torch.cuda.synchronize()
+        tm["prove_s"] = time.perf_counter() - t0
+        runs.append(tm)
+        log(f"PoB timed prove: h_s {tm['h_s']:.4f} msm_s {tm['msm_s']:.4f} "
+            f"prove_s {tm['prove_s']:.4f}")
+    counts = dict(_build.LAUNCHES)
+    per_prove = {k: (counts[k] - before[k]) // len(runs) for k in counts}
+    mean = {k: sum(tm[k] for tm in runs) / len(runs) for k in ("h_s", "msm_s", "prove_s")}
+    pps = POB_BATCH / (witness_s + mean["prove_s"])
+    log(f"PoB launches: setup {after_setup}, witness "
+        f"{ {k: after_witness[k] - after_setup[k] for k in counts} }, one batch-{POB_BATCH} "
+        f"prove {per_prove}, whole path {counts}")
+    log(f"PoB proofs_per_s {pps:.4f} (batch / (witness_s + prove_s), prove_s the mean of "
+        f"{len(runs)} timed proves)")
+    for key in _build.LAUNCHES:
+        if counts[key] <= 0:
+            fail(f"kernel {key} was not launched on the PoB path")
+
+    t0 = time.perf_counter()
+    for i in range(POB_BATCH):
+        if not groth16.verify(vk, proofs[i], [pubs[i]]):
+            fail(f"PoB proof {i} does not verify")
+        if groth16.verify(vk, proofs[i], [(pubs[i] + 1) % FR_MOD]):
+            fail(f"PoB proof {i} verifies with a tampered public input")
+    log(f"PoB verify: {POB_BATCH} proofs accepted, {POB_BATCH} tampered publics rejected "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    wit_parts = witness_parts(TEST_CONFIG, cs, kw)  # after the counts: its launches are extra
+    log("PoB witness again, by part (s): " + json.dumps(wit_parts))
+    rows = []
+
+    # K1 on an h-stage product at (4, 2^22): A.W times B.W, compute_h's C.W;
+    # the plain version in chunks of 2^20 elements (its int64 columns)
+    fa, fb = aw.reshape(-1, limb.L), bw.reshape(-1, limb.L)
+    kern = cuda_mont.field_op(cuda_mont.MUL, limb.FR, fa, fb)
+    k1_err, k1_pm = 0, 0.0
+    for o in range(0, fa.shape[0], 1 << 20):
+        c = slice(o, o + (1 << 20))
+        want, ms = once_ms(lambda: limb.mont_mul_plain(limb.FR, fa[c], fb[c]))
+        k1_pm += ms
+        k1_err = max(k1_err, exact(f"K1 PoB A.W x B.W elements [{o}, ...)", kern[c], want))
+    k1_ms = cuda_ms(lambda: cuda_mont.field_op(cuda_mont.MUL, limb.FR, fa, fb), 10)
+    bms, by = bound(3 * 64 * fa.shape[0], fa.shape[0])
+    log(f"K1 PoB h-stage product ({POB_BATCH} x 2^{pk.k} Fr pairs) exact: kernel_ms {k1_ms:.4f} "
+        f"plain_ms {k1_pm:.1f} bound_ms {bms:.4f} ({by})")
+    rows.append({"name": "K1 mont (PoB: Fr mul, the h stage's A.W x B.W)", "key": "mont",
+                 "route": "cuda", "source": "pob_tpu_torch/csrc/mont.cu",
+                 "replaces": "pob_tpu/field/pallas_mont.py:107", "max_abs_err": k1_err,
+                 "ms": k1_ms, "plain_ms": k1_pm, "bound_ms": bms, "bound_by": by,
+                 "library_ms": None, "shape": f"{POB_BATCH} x 2^{pk.k} Fr pairs"})
+    del kern, want, fa, fb
+
+    # K2 on the h stage's first transform, intt(A.W): 4 rows x 2^22, three
+    # passes, against the plain version row by row; and one random row at
+    # k = 20 (two passes) and 21 (three)
+    rand_elems = make_rand(dev, 20261)
+    for k in POB_K2_MORE:
+        x = rand_elems((1, 1 << k))
+        roots = limb.to_device(ntt._root_powers(k, False), dev)
+        want = ntt._transform_plain(x.index_select(-2, torch.from_numpy(ntt._bitrev(k)).to(dev)),
+                                    k, roots)
+        exact(f"K2 k={k}", ntt.ntt_stages_cuda(x, k, roots, gather=True), want)
+        log(f"K2 k={k} (passes {ntt.ntt_passes(k)}) exact against the plain version (1 row)")
+    roots = limb.to_device(ntt._root_powers(pk.k, True), dev)
+    bitrev = torch.from_numpy(ntt._bitrev(pk.k)).to(dev)
+    kern = ntt.ntt_stages_cuda(aw, pk.k, roots, gather=True)
+    k2_err, k2_pm = 0, 0.0
+    for r in range(POB_BATCH):
+        want, ms = once_ms(lambda: ntt._transform_plain(aw[r:r + 1].index_select(-2, bitrev),
+                                                        pk.k, roots))
+        k2_pm += ms
+        k2_err = max(k2_err, exact(f"K2 PoB intt(A.W) row {r}", kern[r:r + 1], want))
+    k2_ms = cuda_ms(lambda: ntt.ntt_stages_cuda(aw, pk.k, roots, gather=True), 5)
+    bms, by = bound(2 * POB_BATCH * n * 64 + n // 2 * 64, pk.k * POB_BATCH * n // 2)
+    log(f"K2 PoB intt(A.W) stages ({POB_BATCH} rows x 2^{pk.k}, passes {ntt.ntt_passes(pk.k)}, "
+        f"with the gather) exact: kernel_ms {k2_ms:.4f} plain_ms {k2_pm:.1f} (row by row) "
+        f"bound_ms {bms:.4f} ({by})")
+    rows.append({"name": "K2 ntt (PoB: the h stage's intt(A.W), 3 passes)", "key": "ntt",
+                 "route": "cuda", "source": "pob_tpu_torch/csrc/ntt.cu",
+                 "replaces": "pob_tpu/prover/ntt.py:61", "max_abs_err": k2_err, "ms": k2_ms,
+                 "plain_ms": k2_pm, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "shape": f"{POB_BATCH} rows x 2^{pk.k}"})
+    del kern, want, aw, bw, x
+
+    # K3 on this path's own inputs: the whole a-MSM of proof 0, and the
+    # h- and b2-MSMs at B = 4 with scalars kept at POB_SAMPLE positions
+    # spread over [0, m), the last included (the rest zeroed)
+    def sampled(sc):
+        keep = torch.from_numpy(spread_positions(sc.shape[1], POB_SAMPLE)).to(dev)
+        out = torch.zeros_like(sc)
+        out[:, keep] = sc[:, keep]
+        return out
+
+    checks = (("a-MSM proof 0", "g1", "a_query", W[:1]),
+              ("h-MSM sampled", "g1", "h_query", sampled(h)),
+              ("b2-MSM sampled", "g2", "b2_query", sampled(W)))
+    for name, group, q, sc in checks:
+        pts = getattr(pk, q)
+        (kern, km3), (plain, pm3) = (
+            once_ms(lambda: msm.msm_batched(group, pts, sc, pk.bases[q])),
+            once_ms(lambda: msm.msm_plain(curve.ops_for(group), pts, sc)))
+        same_points(f"K3 PoB {name}", group, kern, plain)
+        nz = int((msm.scalar_digits(sc) != 0).sum())
+        log(f"K3 PoB {name} ({group}, B={sc.shape[0]}, m={sc.shape[1]}, {nz} nonzero digits): "
+            f"exact; kernel_ms {km3:.3f} plain_ms {pm3:.3f}")
+        if q == "h_query":
+            h_sampled = (km3, pm3, nz)
+    del checks, sc, kern, plain
+    nz = sum(int((msm.scalar_digits(h[b]) != 0).sum()) for b in range(POB_BATCH))
+    hm = cuda_ms(lambda: msm.msm_batched("g1", pk.h_query, h, pk.bases["h_query"]), 3)
+    (bms, by), (bms_full, _) = msm_bounds("g1", POB_BATCH, n, nz)
+    (sbms, _), _ = msm_bounds("g1", POB_BATCH, n, h_sampled[2])
+    log(f"K3 PoB h-MSM B={POB_BATCH} m={n} ({nz} nonzero digits): kernel_ms {hm:.3f} bound_ms "
+        f"{bms:.3f} ({by}; {bms_full:.3f} with a full add per digit)")
+    rows.append({"name": "K3 msm (PoB h-MSM: G1, B=4 x 2^22)", "key": "msm", "route": "cuda",
+                 "source": "pob_tpu_torch/csrc/msm.cuh",
+                 "replaces": "pob_tpu/prover/msm.py:92", "max_abs_err": 0, "ms": hm,
+                 "plain_ms": h_sampled[1], "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "shape": f"B={POB_BATCH} x 2^{pk.k} G1 points",
+                 "checked_on": f"the same B={POB_BATCH} h with scalars kept at {POB_SAMPLE} "
+                               f"positions (last included), the rest 0: plain_ms is the plain "
+                               f"version's, sampled_ms the kernel's, sampled_bound_ms its bound",
+                 "sampled_ms": h_sampled[0], "sampled_bound_ms": sbms})
+    del W, h
+
+    # K4 on the setup's own scalars (computed again on the host), at
+    # POB_SAMPLE positions per group: the setup's query points there against
+    # the plain version; the kernel timed over every scalar of the group
+    torch.cuda.empty_cache()
+    _, sc_host, _ = groth16.setup_scalars(cs, TOXIC)
+    ic_pts = curve.g1_points_to_device(vk.ic, dev)
+    for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):
+        sizes = [len(sc_host[q]) for q in names]
+        offs = np.cumsum([0] + sizes)
+        n4 = int(offs[-1])
+        pos = spread_positions(n4, POB_SAMPLE)
+        q_of = np.searchsorted(offs, pos, side="right") - 1
+        got = []
+        for qi, q in enumerate(names):
+            local = torch.from_numpy(pos[q_of == qi] - offs[qi]).to(dev)
+            got.append(tuple(c[local] for c in (ic_pts if q == "ic" else getattr(pk, q))))
+        got = tuple(torch.cat(cs_, 0) for cs_ in zip(*got))
+        sc = limb.to_device(limb.ints_to_limbs([x for q in names for x in sc_host[q]]), dev)
+        sc_pos, pm4 = sc[torch.from_numpy(pos).to(dev)], 0.0
+        for o in range(0, len(pos), POB_K4_CHUNK):  # the plain G2 sums need ~4 GB per 2^14
+            c = slice(o, o + POB_K4_CHUNK)
+            plain, ms = once_ms(lambda: msm.fixed_base_plain(group, sc_pos[c]))
+            pm4 += ms
+            same_points(f"K4 PoB {group} setup queries at positions [{o}, ...) of {len(pos)}",
+                        group, tuple(x[c] for x in got), plain)
+        km4 = median_ms(lambda: msm.fixed_base_msm(group, sc))
+        dig = msm.scalar_digits(sc) != 0
+        nz4, nz_scalars = int(dig.sum()), int(dig.any(-1).sum())
+        nbytes = n4 * 64 + n4 * 3 * COORD_BYTES[group] + 8192 * 2 * COORD_BYTES[group] // 2
+        bms, by = bound(nbytes, (nz4 - nz_scalars) * MADD_MULS[group])
+        bms_full, _ = bound(nbytes, nz4 * ADD_MULS[group])
+        log(f"K4 PoB {group} setup queries {'+'.join(names)} (n={n4}, {nz4} nonzero digits): "
+            f"exact at {len(pos)} positions (plain_ms {pm4:.3f}); kernel_ms {km4:.3f} over all "
+            f"(median of 3) bound_ms {bms:.3f} ({by}) {bms_full:.3f} (a full add per digit)")
+        rows.append({"name": f"K4 fixed_base (PoB: {group.upper()} window, the setup's "
+                             f"{group.upper()} queries)", "key": "fixed_base", "route": "cuda",
+                     "source": "pob_tpu_torch/csrc/fixed_base.cu",
+                     "replaces": "pob_tpu/prover/msm.py:248", "max_abs_err": 0, "ms": km4,
+                     "plain_ms": pm4, "bound_ms": bms, "bound_by": by,
+                     "bound_ms_full_adds": bms_full, "library_ms": None,
+                     "shape": f"{n4} {group.upper()} scalars",
+                     "plain_shape": f"{len(pos)} of them, spread over [0, {n4}), the last "
+                                    f"included"})
+        del sc, sc_pos, got, plain, dig
+    del sc_host
+    for row in rows:
+        key = row.pop("key")
+        row["launches"] = counts[key]
+        row["launches_per_prove"] = per_prove[key]
+
+    out = {"constraints": cs.num_constraints, "wires": cs.num_wires, "nnz": nnz,
+           "k": pk.k, "batch": POB_BATCH, "build_cs_s": build_cs_s, "setup_s": setup_s,
+           **{f"setup_{k}": v for k, v in st.items()}, "witness_s": witness_s, **mean,
+           "timed_proves": runs, "proofs_per_s": pps, "witness_parts_s": wit_parts,
+           "matvec_s": matvec_s, "peak_gb": gb,
+           "key_gb": {"bases": key_gb, "jacobian": jac_gb, "mats": mats_gb},
+           "launches": counts, "launches_per_prove": per_prove}
+    return out, rows
+
+
 def main():
     try:
         import torch
@@ -198,55 +643,7 @@ def main():
         msm_breakdown(torch, msm, five_msms(pk, W, groth16.compute_h(pk.k, pk.mats, W)))
         return
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(20260)
-
-    def rand_elems(shape, top=0x3000):
-        """Random canonical elements (< p of Fr and Fq: top limb < 0x3064)."""
-        x = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        x[..., 15] %= top
-        return x
-
-    def cuda_ms(fn, reps=3):
-        fn()
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / reps
-
-    def median_ms(fn, reps=3):
-        """Median of reps calls of fn after a warm-up, each timed with CUDA
-        events."""
-        fn()
-        return sorted(once_ms(fn)[1] for _ in range(reps))[reps // 2]
-
-    def exact(name, a, b):
-        if a.shape != b.shape or not torch.equal(a, b):
-            bad = (a != b).any(-1).nonzero()[:4].tolist() if a.shape == b.shape else "shape"
-            fail(f"{name}: kernel and plain version differ (first rows {bad})")
-        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
-
-    def once_ms(fn):
-        """One call of fn, timed with CUDA events: (result, ms)."""
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        return out, s.elapsed_time(e)
-
-    def same_points(name, group, p, q):
-        """Kernel points p against plain points q, as affine points."""
-        eq = curve.points_equal(curve.ops_for(group), p, q)
-        if not bool(eq.all()):
-            fail(f"{name}: kernel and plain version differ (first points "
-                 f"{(~eq).nonzero().squeeze(1)[:4].tolist()})")
+    rand_elems = make_rand(dev, 20260)
 
     def build_table(group):
         """K4's window table built anew, as setup's first call builds it."""
@@ -601,9 +998,18 @@ def main():
         row["key"] = key
     for row in rows:
         row["launches"] = counts[row["key"]]
-        row["launches_per_prove"] = per_prove[row.pop("key")]
+        row["launches_per_prove"] = per_prove[row["key"]]
 
-    log(json.dumps({"kernels": rows}))
+    # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
+    del pk, vk, W, h, msms, kern, plain, sc, ic_pts, args, xm, br, want, a, b, wide
+    gc.collect()
+    pob, pob_rows = pob_phase(dev, card)
+    for row in rows:
+        key = row.pop("key")
+        row["launches_pob"] = pob["launches"][key]
+        row["launches_per_pob_prove"] = pob["launches_per_prove"][key]
+    log("pob " + json.dumps(pob))
+    log(json.dumps({"kernels": rows + pob_rows}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

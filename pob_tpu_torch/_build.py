@@ -51,6 +51,7 @@ _ARGTYPES = {
         "pob_msm_bucket_sum": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
         "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P],
         "pob_msm_shifted_bases": [_P, _P, _P, _L, _P, _P],
+        "pob_msm_max_levels": [],
     } for src in ("msm_g1.cu", "msm_g2.cu")},
     "fixed_base.cu": {
         "pob_fb_doublings": [_I, _P, _P, _P, _P, _P],

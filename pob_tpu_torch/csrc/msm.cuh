@@ -48,7 +48,7 @@ constexpr int NWIN = 32;
 constexpr int NBKT = 256;          // buckets per proof: digit values (0 unused)
 constexpr int HT = 256;            // hist / scatter threads, one scalar each
 constexpr int LT = 1024;           // layout threads (one block)
-constexpr int MAX_LEVELS = 8;
+constexpr int MAX_LEVELS = 9;       // bucket-sum levels: level_segs(32 m) for m <= 2^24
 constexpr int CW = 8;              // buckets per reduce thread
 constexpr int NCH = NBKT / CW;     // reduce threads per proof
 constexpr int PW = Coord<T>::PW;   // packed words per coordinate
@@ -325,6 +325,8 @@ extern "C" int pob_msm_hist(const void* s, int B, int m, void* blockhist, void* 
       (const int32_t*)s, m, chunks, (int*)blockhist, (int*)counts);
   POB_CHECK();
 }
+
+extern "C" int pob_msm_max_levels() { return MAX_LEVELS; }
 
 extern "C" int pob_msm_layout(const void* counts, int n_keys, int n_levels,
                               const int* div, void* P, void* cursor, void* stream) {

@@ -278,6 +278,66 @@ def from_mont(spec: FieldSpec, a):
     return mont_reduce(spec, tf.pad(a, (0, L)))
 
 
+def small_to_limbs(x):
+    """(...,) non-negative int tensor < 2^32 -> (..., 16) int32 limb scalar."""
+    x = x.to(I64)
+    return tf.pad(torch.stack([x & MASK, x >> BITS], -1), (0, L - 2)).to(I32)
+
+
+def is_zero(a):
+    return (a == 0).all(-1)
+
+
+def sub_raw(a, b):
+    """16-limb subtraction a - b mod 2^256: (limbs, borrow in {0, 1}), the
+    borrow 1 exactly when a < b (plain torch on either device)."""
+    v = tf.pad(a.to(I64) + (MASK - b.to(I64)), (0, 1))
+    v[..., 0] += 1  # a + ~b + 1
+    fixed = carry_fix(v, BITS + 2)
+    return fixed[..., :L].to(I32), (1 - fixed[..., L]).to(I32)
+
+
+def _exp_bits(e: int) -> list:
+    return [(e >> i) & 1 for i in range(e.bit_length() - 1, -1, -1)]
+
+
+def mont_pow_bits(spec: FieldSpec, a, exp_bits):
+    """a^e for a in Montgomery form, e given as MSB-first bits (a static
+    list): a squaring per bit and a product per set bit, each through K1 on
+    a CUDA tensor."""
+    r = const(spec.r_mont, a).expand(a.shape)
+    for bit in exp_bits:
+        r = mont_sqr(spec, r)
+        if bit:
+            r = mont_mul(spec, r, a)
+    return r
+
+
+def inv_mont(spec: FieldSpec, a):
+    """Inverse in Montgomery form by Fermat (a^(p-2)): aR -> a^-1 R; 0 -> 0."""
+    return mont_pow_bits(spec, a, _exp_bits(spec.mod - 2))
+
+
+def batch_inv_mont(spec: FieldSpec, a, axis: int = 0):
+    """Montgomery's trick along `axis`: prefix products, one inversion of
+    their total, and the inverses back down. Zero entries map to zero."""
+    a = a.movedim(axis, 0)
+    n = a.shape[0]
+    zero = is_zero(a)[..., None]
+    one = const(spec.r_mont, a).expand(a.shape[1:])
+    safe = torch.where(zero, one, a)
+    prefixes = [one]
+    for i in range(n):
+        prefixes.append(mont_mul(spec, prefixes[-1], safe[i]))
+    acc = inv_mont(spec, prefixes[-1])
+    outs = [None] * n
+    for i in range(n - 1, -1, -1):
+        outs[i] = mont_mul(spec, acc, prefixes[i])
+        acc = mont_mul(spec, acc, safe[i])
+    out = torch.stack(outs, 0)
+    return torch.where(zero, 0, out).movedim(0, axis)
+
+
 # ---------------------------------------------------------------------------
 # byte / bit conversions
 # ---------------------------------------------------------------------------

@@ -109,3 +109,57 @@ def state_to_digest(lo, hi):
     parts += [(lanes_hi >> s) & 0xFF for s in (0, 8, 16, 24)]
     bytes_ = torch.stack(parts, -1)  # (..., 4, 8)
     return bytes_.reshape(bytes_.shape[:-2] + (32,)).to(torch.int32)
+
+
+def pad_bytes(data, in_len, max_blocks: int):
+    """Reference `Pad` semantics (keccak.circom:412-446): keep the first
+    in_len bytes, add 0x01 at position in_len and 0x80 at the last byte of
+    block num_blocks (0x81 when they coincide).
+
+    data: (..., max_blocks*136) int32 bytes; in_len: (...,) int tensor.
+    Returns (padded int32, num_blocks)."""
+    idx = torch.arange(max_blocks * RATE, device=data.device)
+    in_len = in_len.to(torch.int64)[..., None]
+    num_blocks = in_len // RATE + 1
+    padded = (data * (idx < in_len) + 0x01 * (idx == in_len)
+              + 0x80 * (idx == num_blocks * RATE - 1))
+    return padded.to(torch.int32), num_blocks[..., 0].to(torch.int32)
+
+
+def keccak_bytes(data, in_len, max_blocks: int, return_states: bool = False):
+    """Keccak256 of dynamic-length byte arrays (reference `KeccakBytes`,
+    keccak.circom:454-489). data: (..., max_blocks*136) int32 bytes; in_len:
+    (...,) with in_len < max_blocks*136 (callers check, as the circuit
+    asserts at keccak.circom:460). Returns (..., 32) int32 digest bytes.
+
+    Computes all max_blocks absorptions and selects the state after
+    num_blocks, the compute-all-then-select pattern of `Final`
+    (keccak.circom:330-349)."""
+    padded, num_blocks = pad_bytes(data, in_len, max_blocks)
+    blk_lo, blk_hi = bytes_to_blocks(padded, max_blocks)  # (..., max_blocks, 17)
+    lo = torch.zeros(padded.shape[:-1] + (25,), dtype=torch.int64, device=padded.device)
+    hi = torch.zeros_like(lo)
+    states_lo, states_hi = [], []  # the state after each absorption
+    for b in range(max_blocks):
+        lo = torch.cat([lo[..., :17] ^ blk_lo[..., b, :], lo[..., 17:]], -1)
+        hi = torch.cat([hi[..., :17] ^ blk_hi[..., b, :], hi[..., 17:]], -1)
+        lo, hi = keccak_f(lo, hi)
+        states_lo.append(lo)
+        states_hi.append(hi)
+    states_lo, states_hi = torch.stack(states_lo), torch.stack(states_hi)
+    sel = torch.nn.functional.one_hot((num_blocks - 1).long(), max_blocks).movedim(-1, 0)
+    fin_lo = (states_lo * sel[..., None]).sum(0)
+    fin_hi = (states_hi * sel[..., None]).sum(0)
+    digest = state_to_digest(fin_lo, fin_hi)
+    if return_states:
+        return digest, (states_lo, states_hi)
+    return digest
+
+
+def keccak_fixed(data):
+    """Keccak256 of a fixed-length byte array (..., n), n known statically."""
+    n = data.shape[-1]
+    max_blocks = n // RATE + 1
+    buf = torch.nn.functional.pad(data.to(torch.int32), (0, max_blocks * RATE - n))
+    in_len = torch.full(data.shape[:-1], n, dtype=torch.int32, device=data.device)
+    return keccak_bytes(buf, in_len, max_blocks)

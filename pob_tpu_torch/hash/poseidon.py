@@ -10,6 +10,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from ..field import limb
 from ..field.limb import FR
@@ -74,3 +75,11 @@ def poseidon_perm_mont(state):
             state[..., 0:1, :] = sigma(state[..., 0:1, :])[2]
         state = mix(state, t)
     return state
+
+
+def poseidon_limbs(inputs):
+    """Poseidon of canonical limb inputs (..., n, 16) -> canonical (..., 16):
+    width t = n + 1 with lane 0 set to 0 (reference tests/poseidon.py:1197)."""
+    state = limb.to_mont(FR, inputs)
+    state = torch.cat([torch.zeros_like(state[..., :1, :]), state], -2)
+    return limb.from_mont(FR, poseidon_perm_mont(state)[..., 0, :])

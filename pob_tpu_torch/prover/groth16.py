@@ -203,19 +203,27 @@ def setup_scalars(cs: ConstraintSystem, toxic):
 G1_QUERIES = ("a_query", "b1_query", "l_query", "h_query", "ic")  # one K4 call, this order
 
 
-def setup(cs: ConstraintSystem, rng=None, device=None):
+def setup(cs: ConstraintSystem, rng=None, device=None, timings: dict | None = None):
     """Trusted setup (toxic waste sampled locally: fine for benchmarking and
     self-verification). Draws tau, alpha, beta, gamma, delta from `rng` in
     that order, computes the query scalars on the host and the query points
-    with K4 on `device`. Returns (ProvingKey, VerifyingKey)."""
+    with K4 on `device`. Returns (ProvingKey, VerifyingKey). With a
+    `timings` dict, the seconds of the host scalars, of the K4 calls (with
+    their host-to-card copies) and of the key's affine bases are stored
+    under "scalars_s", "k4_s" and "bases_s" (each synchronized)."""
     device = _build.resolve_device(device)
     rnd = rng or (lambda: secrets.randbelow(FR_MOD - 1) + 1)
     toxic = tuple(rnd() for _ in range(5))
     _, alpha, beta, gamma, delta = toxic
+    t0 = time.perf_counter()
     k, sc, host_mats = setup_scalars(cs, toxic)
+    t1 = time.perf_counter()
 
     a_q, b1_q, l_q, h_q, ic_q = _fixed_base_many("g1", [sc[q] for q in G1_QUERIES], device)
     (b2_q,) = _fixed_base_many("g2", [sc["b2_query"]], device)
+    del sc
+    _sync(device)
+    t2 = time.perf_counter()
 
     pk = ProvingKey(
         k=k, num_public=cs.num_public,
@@ -225,7 +233,11 @@ def setup(cs: ConstraintSystem, rng=None, device=None):
         a_query=a_q, b1_query=b1_q, b2_query=b2_q, l_query=l_q, h_query=h_q,
         mats=_mats_to_device(host_mats, device),
     )
+    t3 = time.perf_counter()
     attach_bases(pk)
+    _sync(device)
+    if timings is not None:
+        timings.update(scalars_s=t1 - t0, k4_s=t2 - t1, bases_s=time.perf_counter() - t3)
     vk = VerifyingKey(alpha1=pk.alpha1, beta2=pk.beta2, gamma2=g2_mul(G2_GEN, gamma),
                       delta2=pk.delta2, ic=curve.to_affine_host_batch("fq", ic_q))
     return pk, vk
@@ -236,19 +248,32 @@ def setup(cs: ConstraintSystem, rng=None, device=None):
 # ---------------------------------------------------------------------------
 
 
+MATVEC_CHUNK = 1 << 20  # nonzeros, then rows, per step of sparse_matvec_mont
+
+
 def sparse_matvec_mont(mat, W, n: int):
     """COO (rows, cols, coeffs = c*R^2) x canonical witnesses W (B, nw, 16)
     -> (B, n, 16) Montgomery. Per-nonzero K1 multiply, a limb-wise int64
     index_add_ into rows, carry normalization, one K1 REDC and one K1
     multiply by R^2 per row. Per-row term counts are small, so each wide
-    row sum stays below p R before the REDC."""
+    row sum stays below p R before the REDC. Both passes go MATVEC_CHUNK
+    nonzeros or rows at a time, which bounds their temporaries (a few GB
+    at domain 2^22, batch 4); integer sums make the result the same for
+    any chunk size."""
     rows, cols, coeffs = mat
-    terms = limb.mont_mul(FRS, coeffs, W[:, cols])  # (B, nnz, 16) Montgomery
-    sums = torch.zeros(W.shape[0], n, limb.L, dtype=torch.int64, device=W.device)
-    sums.index_add_(1, rows, terms.to(torch.int64))  # limbs < count * 2^16
-    norm = limb.carry_fix(torch.nn.functional.pad(sums, (0, limb.L)), 40).to(torch.int32)
-    red = limb.mont_reduce(FRS, norm)  # = S R^{-1}
-    return limb.mont_mul(FRS, red, limb.const(_R2_LIMBS, red))  # = S
+    B = W.shape[0]
+    sums = torch.zeros(B, n, limb.L, dtype=torch.int64, device=W.device)
+    for o in range(0, rows.shape[0], MATVEC_CHUNK):
+        c = slice(o, o + MATVEC_CHUNK)
+        terms = limb.mont_mul(FRS, coeffs[c], W[:, cols[c]])  # (B, chunk, 16) Montgomery
+        sums.index_add_(1, rows[c], terms.to(torch.int64))  # limbs < count * 2^16
+    out = torch.empty(B, n, limb.L, dtype=torch.int32, device=W.device)
+    for o in range(0, n, MATVEC_CHUNK):
+        c = slice(o, o + MATVEC_CHUNK)
+        norm = limb.carry_fix(torch.nn.functional.pad(sums[:, c], (0, limb.L)), 40)
+        red = limb.mont_reduce(FRS, norm.to(torch.int32))  # = S R^{-1}
+        out[:, c] = limb.mont_mul(FRS, red, limb.const(_R2_LIMBS, red))  # = S
+    return out
 
 
 def compute_h(k: int, mats, W):

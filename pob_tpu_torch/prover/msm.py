@@ -397,6 +397,9 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     _launch(timing, "hist", lib.pob_msm_hist, scalars.data_ptr(), B, m, blockhist.data_ptr(),
             counts.data_ptr(), stream)
     segs = level_segs(N_WINDOWS * m)
+    if len(segs) > lib.pob_msm_max_levels():
+        raise ValueError(f"m = {m} needs {len(segs)} bucket-sum levels, more than K3's "
+                         f"{lib.pob_msm_max_levels()}")
     caps = level_caps(B, m, segs)
     P, cursor = _layout_cuda(lib, counts, segs, stream, timing)
     idx = i32(caps[0])

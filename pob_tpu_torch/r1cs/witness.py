@@ -9,6 +9,7 @@ import torch
 
 from ..field import limb
 from ..field.limb import FR
+from ..hash import keccak as kdev
 from ..hash import poseidon
 from ..hash.keccak import _CHI1, _CHI2, _RC_HI, _RC_LO, _ROT, _SRC, _idx, _not32, _rotl64
 
@@ -108,3 +109,101 @@ def bits_to_limb_block(bits):
     out = torch.zeros(bits.shape + (limb.L,), dtype=I32, device=bits.device)
     out[..., 0] = bits
     return out
+
+
+def one_hot(idx, n: int):
+    """(...,) int tensor -> (..., n) int32 one-hot; all zero where idx is
+    out of range (as jax.nn.one_hot)."""
+    return (torch.arange(n, device=idx.device) == idx[..., None]).to(I32)
+
+
+def int_bits(v, n: int):
+    """(...,) non-negative int tensor -> (..., n) LSB-first int32 bits."""
+    shifts = torch.arange(n, device=v.device)
+    return ((v.to(torch.int64)[..., None] >> shifts) & 1).to(I32)
+
+
+def _dynamic_absorb_trace(padded, n_blocks: int):
+    """keccak_f_trace over each absorption of an already padded message:
+    (blocks, digest bits after each block (..., n_blocks, 256)). Block keys:
+    'b{b}_ax' (the absorbed state's rate lanes, b > 0) and 'b{b}_tc' etc."""
+    blk_lo, blk_hi = kdev.bytes_to_blocks(padded, n_blocks)
+    lo = torch.zeros(padded.shape[:-1] + (25,), dtype=torch.int64, device=padded.device)
+    hi = torch.zeros_like(lo)
+    blocks, digests = {}, []
+    for b in range(n_blocks):
+        ax_lo = lo[..., :17] ^ blk_lo[..., b, :]
+        ax_hi = hi[..., :17] ^ blk_hi[..., b, :]
+        if b > 0:
+            blocks[f"b{b}_ax"] = lane_bits(ax_lo, ax_hi)
+        lo = torch.cat([ax_lo, lo[..., 17:]], -1)
+        hi = torch.cat([ax_hi, hi[..., 17:]], -1)
+        kb, (lo, hi) = keccak_f_trace(lo, hi)
+        for k, v in kb.items():
+            blocks[f"b{b}_{k}"] = v
+        digests.append(lane_bits(lo[..., :4], hi[..., :4]).flatten(-2))
+    return blocks, torch.stack(digests, -2)
+
+
+def keccak_static_trace(msg_bytes, n_blocks: int):
+    """Witness twin of a static-length keccak chain: msg_bytes
+    (..., n_blocks*136) already padded. Returns (blocks, digest_bits) where
+    blocks holds, per block b, 'b{b}_ax' (b > 0) and the keccak_f_trace
+    blocks 'b{b}_tc' etc.; digest_bits is (..., 256) of the final state."""
+    blocks, digests = _dynamic_absorb_trace(msg_bytes, n_blocks)
+    return blocks, digests[..., -1, :]
+
+
+def keccak_bytes_trace(data, in_len, max_blocks: int):
+    """Witness twin of gadgets_cs.keccak_bytes_cs. data: (..., max_bytes)
+    int32 bytes; in_len: (...,) int tensor. Returns (blocks, digest_bits)
+    with block keys in the cs allocation order (sans name prefix)."""
+    max_bytes = max_blocks * kdev.RATE
+    in_len = in_len.to(torch.int64)
+    div = in_len // kdev.RATE
+    rem = in_len % kdev.RATE
+    blocks = {
+        "div": div[..., None].to(I32),
+        "rem_bits": int_bits(rem, 8),
+        "rem_hi_bits": int_bits(135 - rem, 8),
+        "len_oh": one_hot(in_len, max_bytes),
+        "blk_oh": one_hot(div, max_blocks),
+    }
+    idx = torch.arange(max_bytes, device=data.device)
+    blocks["filter"] = (idx < in_len[..., None]).to(I32)
+    padded, _ = kdev.pad_bytes(data, in_len, max_blocks)
+    blocks["padded"] = padded
+    blocks["pbits"] = int_bits(padded, 8)
+    kblocks, digest_per_block = _dynamic_absorb_trace(padded, max_blocks)
+    blocks.update(kblocks)
+    # digest select partials: sel[b, bit] = blk_oh[b] * digest_b[bit]
+    sel = blocks["blk_oh"][..., :, None] * digest_per_block  # (..., max_blocks, 256)
+    blocks["sel"] = sel
+    return blocks, sel.sum(-2, dtype=I32)
+
+
+def digest_bits_to_bytes(digest_bits):
+    """(..., 256) bits -> (..., 32) bytes."""
+    pairs = digest_bits.reshape(digest_bits.shape[:-1] + (32, 8)).to(torch.int64)
+    return (pairs << torch.arange(8, device=pairs.device)).sum(-1).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# small-field helpers for hint wires
+# ---------------------------------------------------------------------------
+
+
+def i32_sub_mod_p(a, b):
+    """(a - b) mod p as limb scalars, for small non-negative int tensors a, b
+    (either may be a python int)."""
+    d = torch.as_tensor(a).to(torch.int64) - torch.as_tensor(b).to(torch.int64)
+    return limb.sub(FR, limb.small_to_limbs(d.clamp(min=0)),
+                    limb.small_to_limbs((-d).clamp(min=0)))
+
+
+def is_zero_hints(diff_limbs):
+    """diff values (n, ..., 16) canonical -> (out bits, inv limbs) matching
+    gadgets_cs.is_zero_cs (the caller orders {name}_inv then {name}_out)."""
+    zero = limb.is_zero(diff_limbs)
+    inv = limb.from_mont(FR, limb.batch_inv_mont(FR, limb.to_mont(FR, diff_limbs), axis=0))
+    return zero.to(I32), inv

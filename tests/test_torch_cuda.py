@@ -181,3 +181,56 @@ def test_toy_slice_on_card_equals_cpu(dev):
         out[d.type] = groth16.prove_batch(pk, W.to(d), rs=rs)
     assert out["cuda"] == out["cpu"]
     assert groth16.verify(vk, out["cuda"][0], ws[0][1:3])
+
+
+def test_inv_mont_on_card_matches_plain(dev):
+    x = _elems((257,), 12)
+    x[:2] = limb.to_device(limb.ints_to_limbs([0, 1]), "cpu")
+    for spec in (limb.FR, limb.FQ):
+        assert torch.equal(limb.inv_mont(spec, x.to(dev)).cpu(), limb.inv_mont(spec, x))
+
+
+def test_k2_k22_matches_plain(dev):
+    """Three K2 passes (0, 10, 0), (10, 10, 0), (20, 2, 8): the PoB domain."""
+    k = 22
+    x = _elems((1, 1 << k), 13).to(dev)
+    roots = limb.to_device(ntt._root_powers(k, False), dev)
+    br = x.index_select(-2, torch.from_numpy(ntt._bitrev(k)).to(dev))
+    assert len(ntt.ntt_passes(k)) == 3
+    assert torch.equal(ntt.ntt_stages_cuda(x, k, roots, gather=True),
+                       ntt._transform_plain(br, k, roots))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k3_max_levels_covers_the_pob_key(dev, group):
+    """K3's library reports its level limit; the PoB key (2^22 h points)
+    needs every one of its 9 levels, and 2^24 points still fit."""
+    limit = _build.lib(msm._MSM_SRC[group]).pob_msm_max_levels()
+    assert len(msm.level_segs(32 * (1 << 24))) <= limit
+    assert len(msm.level_segs(32 * (1 << 22))) <= limit
+
+
+def test_pob_witness_on_card_equals_cpu(dev):
+    """pob_r1cs_witness at PoBConfig(2, 3, 5, ...) on the fixture cut to its
+    two used layers, batch 2 (the fixture, and layer 1 corrupted): every
+    block on the card equals the CPU's."""
+    import json
+    import os
+
+    from pob_tpu_torch.circuits.proof_of_burn import PoBConfig
+    from pob_tpu_torch.harness import inputs
+    from pob_tpu_torch.r1cs.pob_circuit import pob_r1cs_witness
+
+    cfg = PoBConfig(2, 3, 5, 20, 31, 2, 10**18, 10**19)
+    with open(os.path.join(os.path.dirname(__file__), "fixtures", "pob_input.json")) as f:
+        base = json.load(f)
+    small = dict(base, layers=[l[:cfg.max_node_bytes] for l in base["layers"][:2]],
+                 layerLens=base["layerLens"][:2])
+    bad = json.loads(json.dumps(small))
+    bad["layers"][1][0] ^= 0xFF
+    host = inputs.batch_stack([inputs.load_pob_input(c, cfg) for c in (small, bad)])
+    cpu = pob_r1cs_witness(cfg, **inputs.to_device(host, "cpu"))
+    card = pob_r1cs_witness(cfg, **inputs.to_device(host, dev))
+    assert set(card) == set(cpu)
+    for name, v in cpu.items():
+        assert torch.equal(card[name].cpu().long(), v.long()), name

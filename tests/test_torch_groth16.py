@@ -27,6 +27,7 @@ from test_groth16 import toy_cs, toy_witness  # noqa: E402
 from pob_tpu.field import limb as jl  # noqa: E402
 from pob_tpu.prover import curve as jc  # noqa: E402
 from pob_tpu.prover import groth16 as jg  # noqa: E402
+from pob_tpu_torch.field import limb as tl  # noqa: E402
 from pob_tpu_torch.field.ref import FR_MOD  # noqa: E402
 from pob_tpu_torch.prover import curve as tc  # noqa: E402
 from pob_tpu_torch.prover import groth16 as tg  # noqa: E402
@@ -123,3 +124,30 @@ def test_entry_points_need_a_device_or_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tg.setup(toy_cs(), rng=_rng())
+
+
+def test_sparse_matvec_chunks_match_ints(monkeypatch):
+    """sparse_matvec_mont in chunks of 3 nonzeros and 3 rows (the card's
+    path at domain 2^22 goes 2^20 at a time) equals one chunk and the python
+    ints: row i of A W is sum c W[col] over the nonzeros of row i."""
+    rng = np.random.default_rng(81)
+    n, nw, nnz, B = 8, 6, 20, 2
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, nw, nnz)
+    coef = [int(x) % FR_MOD for x in rng.integers(1, 1 << 62, nnz)] + [FR_MOD - 1]
+    rows, cols = np.append(rows, 0), np.append(cols, 1)
+    r2 = pow(2, 512, FR_MOD)
+    mat = (torch.from_numpy(rows), torch.from_numpy(cols),
+           torch.from_numpy(tl.ints_to_limbs([c * r2 % FR_MOD for c in coef])))
+    w = [[int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(nw)] for _ in range(B)]
+    W = torch.from_numpy(np.stack([tl.ints_to_limbs(x) for x in w]))
+    whole = tg.sparse_matvec_mont(mat, W, n)
+    monkeypatch.setattr(tg, "MATVEC_CHUNK", 3)
+    chunked = tg.sparse_matvec_mont(mat, W, n)
+    assert torch.equal(chunked, whole)
+    r = (1 << 256) % FR_MOD
+    for b in range(B):
+        want = [0] * n
+        for i, j, c in zip(rows, cols, coef):
+            want[i] = (want[i] + c * w[b][j]) % FR_MOD
+        assert tl.limb_rows_to_ints(chunked[b].numpy()) == [x * r % FR_MOD for x in want]

@@ -71,11 +71,28 @@ def test_pack_words_vs_ints():
 
 
 @pytest.mark.parametrize("n,levels", [(1, 1), (32, 1), (33, 2), (256, 2), (2048, 3),
-                                      (32 * 156_870, 7), (32 << 18, 7)])
+                                      (32 * 156_870, 7), (32 << 18, 7), (32 * 3_962_976, 9),
+                                      (32 << 22, 9)])
 def test_level_segs(n, levels):
     segs = msm.level_segs(n)
     assert len(segs) == levels
     assert math.prod(segs) >= n and (len(segs) == 1 or math.prod(segs[:-1]) < n)
+
+
+def test_k3_level_limit_covers_the_pob_key():
+    """K3's bucket-sum level plan for the keys it must hold: a key of more
+    than 2^21 points needs 9 levels (the PoB key at domain 2^22: 3,962,976
+    wires, 2^22 h points), and 9 levels hold keys up to 2^24 points, with
+    every level's divisor below 2^31 (the layout kernel's int). The
+    library's own limit (csrc/msm.cuh, reported by pob_msm_max_levels) is
+    held against the PoB key's plan on the card, in test_torch_cuda.py."""
+    for m in (3_962_976, 1 << 22, 1 << 24):
+        segs = msm.level_segs(32 * m)
+        assert len(segs) == 9
+        assert math.prod(segs) < 1 << 31
+    assert len(msm.level_segs(32 * (1 << 21))) == 8
+    assert len(msm.level_segs(32 * ((1 << 21) + 1))) == 9
+    assert len(msm.level_segs(32 * ((1 << 24) + 1))) == 10
 
 
 def test_segment_layout_plain_vs_ints_and_caps():
