@@ -54,10 +54,27 @@ Phases (any failure exits non-zero; there is no CPU run):
      over [0, m), the last included, and the full h-MSM timed beside its
      bound; K4: the setup's query points at 65,536 positions per group
      against the plain version over the setup's own scalars (computed again
-     on the host), and the K4 call over all of them timed. One `pob {...}`
-     JSON line.
+     on the host), and the K4 call over all of them timed. Then a batch of
+     16 (more than K3's int32 limit of 15 at m = 2^22 and more than free
+     memory holds) in one prove_batch, which splits it into chunks: the
+     first 4 proofs must equal the batch-4 proofs (same witnesses, same
+     r, s), all 16 verify, one tampered public is rejected. Last, the key
+     through a snarkjs .zkey: write_zkey (ZKEY_SAMPLE points of each point
+     section against the plain msm._packed_affine bytes), the key freed,
+     load_zkey (its vk equal to the setup's), the batch-4 witnesses proved
+     again with the same (r, s): the same proofs, which verify. One
+     `pob {...}` JSON line.
+  6. (run after phase 4, before phase 5) the command line at full width on
+     Spend, in-process through pob_tpu_torch.cli.main: setup (zkey, r1cs,
+     vk), witness (wtns), prove (from the zkey), verify (0, and 1 with a
+     tampered public), export-verifier (the .sol parses back to the vk),
+     grind (2 zero bytes); the .wtns must equal spend_full_witness on the
+     card and the .r1cs read back to build_spend_cs's counts; launch counters
+     zeroed before, K1-K4 must each have run. One `cli {...}` JSON line.
+Each phase's end is printed with the script's elapsed time (`phases_s`).
 Then the kernel table as one JSON line (Spend rows with their launches on
-both paths, then the PoB rows), the card, and last, the device line.
+the main path, the cli phase and the PoB path, then the PoB rows), the card,
+and last, the device line.
 
 --k4 times K4 through entry points every tree of the port has
 (msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
@@ -88,6 +105,15 @@ ADD_MULS = {"g1": 16, "g2": 44}  # field multiplies in one Jacobian add
 MADD_MULS = {"g1": 11, "g2": 30}  # ... in one mixed (affine) add
 DBL_MULS = {"g1": 7, "g2": 16}  # ... and in one doubling
 COORD_BYTES = {"g1": 64, "g2": 128}
+
+
+T_START = time.perf_counter()
+PHASES = {}  # phase -> seconds since the script started, at its end
+
+
+def phase_done(name: str):
+    PHASES[name] = time.perf_counter() - T_START
+    log(f"phase {name} done at {PHASES[name]:.1f} s")
 
 
 def fail(msg: str):
@@ -369,8 +395,9 @@ def pob_phase(dev, card):
     pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    if pk.k != 22:
-        fail(f"PoB domain is 2^{pk.k}, expected 2^22")
+    k_pob = pk.k
+    if k_pob != 22:
+        fail(f"PoB domain is 2^{k_pob}, expected 2^22")
     key_gb = sum(t.numel() * t.element_size() for t in pk.bases.values()) / 1e9
     jac_gb = sum(c.numel() * c.element_size() for q, _ in groth16.MSM_QUERIES
                  for c in getattr(pk, q)) / 1e9
@@ -536,7 +563,8 @@ def pob_phase(dev, card):
                                f"positions (last included), the rest 0: plain_ms is the plain "
                                f"version's, sampled_ms the kernel's, sampled_bound_ms its bound",
                  "sampled_ms": h_sampled[0], "sampled_bound_ms": sbms})
-    del W, h
+    del h
+    W = W.cpu()  # back on the card for the zkey round trip; off it for K4's plain sums
 
     # K4 on the setup's own scalars (computed again on the host), at
     # POB_SAMPLE positions per group: the setup's query points there against
@@ -582,20 +610,243 @@ def pob_phase(dev, card):
                      "plain_shape": f"{len(pos)} of them, spread over [0, {n4}), the last "
                                     f"included"})
         del sc, sc_pos, got, plain, dig
-    del sc_host
+    del sc_host, ic_pts
+    big = pob_big_batch(cs, pk, vk, proofs, rs)
+    path, zk = pob_zkey_write(cs, pk, vk)
+    del pk, pts
+    gc.collect()
+    torch.cuda.empty_cache()
+    zk.update(pob_zkey_load(path, vk, W.to(dev), proofs, rs, pubs))
     for row in rows:
         key = row.pop("key")
         row["launches"] = counts[key]
         row["launches_per_prove"] = per_prove[key]
 
     out = {"constraints": cs.num_constraints, "wires": cs.num_wires, "nnz": nnz,
-           "k": pk.k, "batch": POB_BATCH, "build_cs_s": build_cs_s, "setup_s": setup_s,
+           "k": k_pob, "batch": POB_BATCH, "build_cs_s": build_cs_s, "setup_s": setup_s,
            **{f"setup_{k}": v for k, v in st.items()}, "witness_s": witness_s, **mean,
            "timed_proves": runs, "proofs_per_s": pps, "witness_parts_s": wit_parts,
-           "matvec_s": matvec_s, "peak_gb": gb,
+           "matvec_s": matvec_s, "peak_gb": gb, "batch16": big, "zkey": zk,
            "key_gb": {"bases": key_gb, "jacobian": jac_gb, "mats": mats_gb},
            "launches": counts, "launches_per_prove": per_prove}
     return out, rows
+
+
+POB_BIG_BATCH = 16  # the first B above K3's int32 limit at m = 2^22 (15)
+ZKEY_SAMPLE = 4096  # points per section held against the plain version
+
+
+def pob_big_batch(cs, pk, vk, proofs4, rs4) -> dict:
+    """PoB at B = 16 in one prove_batch: more than K3's int32 limit (15 at
+    m = 2^22) and more than free memory holds at once, so it goes in
+    chunks. Witnesses from the fixture as pob_batch makes them (pec0 + 1 +
+    i): the first 4 are the batch-4 witnesses, so with the same (r, s) their
+    proofs must equal the batch-4 proofs; all 16 verify and one tampered
+    public is rejected."""
+    import torch
+
+    from pob_tpu_torch.circuits.proof_of_burn import TEST_CONFIG
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import groth16, msm
+    from pob_tpu_torch.r1cs.pob_circuit import pob_r1cs_witness
+    from pob_tpu_torch.r1cs.spend_circuit import assemble_witness
+
+    B = POB_BIG_BATCH
+    kw, pubs = pob_batch(TEST_CONFIG, torch.device("cuda"), B)
+    W, witness_s = timed(lambda: assemble_witness(cs, pob_r1cs_witness(TEST_CONFIG, **kw)))
+    del kw
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    rs = list(rs4) + [(3000 + i, 4000 + i) for i in range(len(rs4), B)]
+    tm = {}
+    proofs, prove_s = timed(lambda: groth16.prove_batch(pk, W, rs=rs, timings=tm))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del W
+    if proofs[:len(proofs4)] != proofs4:
+        fail(f"PoB B={B} in chunks of {tm['chunk']}: the first {len(proofs4)} proofs differ from "
+             f"the batch-{len(proofs4)} proofs of the same witnesses")
+    t0 = time.perf_counter()
+    for i in range(B):
+        if not groth16.verify(vk, proofs[i], [pubs[i]]):
+            fail(f"PoB B={B}: proof {i} does not verify")
+    if groth16.verify(vk, proofs[B - 1], [(pubs[B - 1] + 1) % FR_MOD]):
+        fail(f"PoB B={B}: proof {B - 1} verifies with a tampered public input")
+    verify_s = time.perf_counter() - t0
+    per_proof = groth16.h_stage_bytes(pk.k) / 1e9
+    out = {"batch": B, "chunk": tm["chunk"], "chunks": -(-B // tm["chunk"]),
+           "k3_max_batch": msm.k3_max_batch(1 << pk.k), "witness_s": witness_s,
+           "prove_s": prove_s, "h_s": tm["h_s"], "msm_s": tm["msm_s"], "verify_s": verify_s,
+           "allocated_before_gb": base_gb, "peak_gb": peak_gb,
+           "h_stage_gb_per_proof_reckoned": per_proof,
+           "peak_reckoned_gb": base_gb + tm["chunk"] * per_proof}
+    log(f"PoB B={B}: one prove_batch in chunks of {tm['chunk']} ({out['chunks']} chunks; K3's "
+        f"limit {out['k3_max_batch']}): prove_s {prove_s:.3f} (h_s {tm['h_s']:.3f}, msm_s "
+        f"{tm['msm_s']:.3f}), peak {peak_gb:.2f} GB from {base_gb:.2f} allocated (reckoned "
+        f"{out['peak_reckoned_gb']:.2f}); proofs 0-{len(proofs4) - 1} equal the batch-"
+        f"{len(proofs4)} proofs; {B} verified, 1 tampered public rejected ({verify_s:.1f} s)")
+    return out
+
+
+def check_zkey_points(path: str, pk, label: str) -> int:
+    """Hold ZKEY_SAMPLE points of each point section of the file, from the
+    middle of the section, against the plain msm._packed_affine of the key's
+    Jacobian points there (bytes, tolerance 0). Returns the points held."""
+    from pob_tpu_torch.prover import msm, serialize
+
+    d, held = serialize.read_zkey(path), 0
+    for sid, q, group in serialize.ZKEY_QUERIES:
+        m = int(getattr(pk, q)[0].shape[0])
+        o = max(0, m // 2 - ZKEY_SAMPLE // 2)
+        e = min(m, o + ZKEY_SAMPLE)
+        plain = msm._packed_affine(group, tuple(c[o:e] for c in getattr(pk, q))).cpu().numpy()
+        got = d[{5: "a_pts", 6: "b1_pts", 7: "b2_pts", 8: "c_pts", 9: "h_pts"}[sid]][o:e]
+        if got.tobytes() != plain.tobytes():
+            fail(f"{label}: zkey section {sid} ({q}) points [{o}, {e}) differ from the plain "
+                 f"version's bytes")
+        held += e - o
+    return held
+
+
+def pob_zkey_write(cs, pk, vk):
+    """The first half of the PoB key's round trip through a snarkjs .zkey at
+    2^22: write_zkey of the setup's key, then sampled point ranges of the
+    file against the plain version. Returns (path, numbers)."""
+    import torch
+
+    from pob_tpu_torch.prover import serialize
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "pob.zkey")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    _, write_s = timed(lambda: serialize.write_zkey(path, pk, vk, cs))
+    out = {"write_s": write_s, "bytes": os.path.getsize(path),
+           "write_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "points_held_against_plain": check_zkey_points(path, pk, "PoB")}
+    log(f"PoB zkey written at 2^{pk.k}: write_s {write_s:.3f}, {out['bytes']} bytes, "
+        f"{out['points_held_against_plain']} sampled points equal the plain version's bytes")
+    return path, out
+
+
+def pob_zkey_load(path, vk, W, proofs, rs, pubs) -> dict:
+    """The second half, after the setup's key is freed: load_zkey; its vk
+    must equal the setup's, and the batch-4 witnesses proved with the same
+    (r, s) must give the setup key's proofs, which verify."""
+    import torch
+
+    from pob_tpu_torch.prover import groth16
+
+    freed_to = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    (lpk, lvk), load_s = timed(lambda: groth16.load_zkey(path))
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    if (lvk.alpha1, lvk.beta2, lvk.gamma2, lvk.delta2, lvk.ic) != (
+            vk.alpha1, vk.beta2, vk.gamma2, vk.delta2, vk.ic):
+        fail("PoB zkey round trip: the loaded vk differs from the setup's")
+    again, prove_s = timed(lambda: groth16.prove_batch(lpk, W, rs=rs))
+    if again != proofs:
+        fail("PoB zkey round trip: proofs from the loaded key differ from the setup key's")
+    for i, p in enumerate(again):
+        if not groth16.verify(lvk, p, [pubs[i]]):
+            fail(f"PoB zkey round trip: proof {i} does not verify")
+    os.remove(path)
+    out = {"freed_to_gb": freed_to, "load_s": load_s, "load_peak_gb": load_peak,
+           "prove_s": prove_s}
+    log(f"PoB zkey loaded: the setup key freed to {freed_to:.2f} GB allocated; load_s "
+        f"{load_s:.3f} (peak {load_peak:.2f} GB); the loaded vk equals the setup's; "
+        f"{len(again)} proofs equal the setup key's and verify")
+    return out
+
+
+def cli_phase(dev) -> dict:
+    """The command line at full width on Spend (domain 2^18), in-process
+    through cli.main: setup (zkey, r1cs, vk), witness (wtns), prove (from
+    the zkey), verify (0, and 1 on a tampered public.json), export-verifier
+    (from the zkey; the .sol parses back to the vk) and grind (2 zero
+    bytes). Launch counters zeroed before; K1-K4 must each have run."""
+    import numpy as np
+    import torch
+
+    from pob_tpu_torch import _build, cli
+    from pob_tpu_torch.field import limb
+    from pob_tpu_torch.harness import pow_grind
+    from pob_tpu_torch.harness.inputs import load_spend_input
+    from pob_tpu_torch.prover import msm, serialize
+    from pob_tpu_torch.prover.solidity import parse_solidity_vk
+    from pob_tpu_torch.r1cs.spend_circuit import build_spend_cs, spend_full_witness
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "build", "chip_smoke", "cli")
+    os.makedirs(d, exist_ok=True)
+    f = {k: os.path.join(d, k) for k in ("spend.zkey", "spend.r1cs", "vk.json", "spend.wtns",
+                                          "proof.json", "public.json", "bad_public.json",
+                                          "verifier.sol")}
+    fix = os.path.join(root, "tests", "fixtures", "spend_input.json")
+    secs = {}
+
+    def run(name, argv, want=0):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if rc != want:
+            fail(f"cli {name}: returned {rc}, expected {want}")
+
+    msm.window_table.cache_clear()  # setup builds K4's table, as a user's first setup does
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    run("setup", ["setup", "--circuit", "spend", "--zkey", f["spend.zkey"], "--r1cs",
+                  f["spend.r1cs"], "--vk", f["vk.json"]])
+    run("witness", ["witness", "--circuit", "spend", "--input", fix, "--wtns", f["spend.wtns"]])
+    run("prove", ["prove", "--circuit", "spend", "--input", fix, "--zkey", f["spend.zkey"],
+                  "--proof", f["proof.json"], "--vk", f["vk.json"]])
+    counts = dict(_build.LAUNCHES)
+    for key, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {key} was not launched by the cli's setup, witness and prove")
+    run("verify", ["verify", "--vk", f["vk.json"], "--proof", f["proof.json"], "--public",
+                   f["public.json"]])
+    with open(f["public.json"]) as fh:
+        pub = json.load(fh)
+    with open(f["bad_public.json"], "w") as fh:
+        json.dump([str(int(pub[0]) + 1)], fh)
+    run("verify_tampered", ["verify", "--vk", f["vk.json"], "--proof", f["proof.json"],
+                            "--public", f["bad_public.json"]], want=1)
+    run("export_verifier", ["export-verifier", "--zkey", f["spend.zkey"], "--out",
+                            f["verifier.sol"], "--proof", f["proof.json"], "--public",
+                            f["public.json"]])
+    with open(f["vk.json"]) as fh:
+        vk = serialize.snarkjs_to_vk(json.load(fh))
+    with open(f["verifier.sol"]) as fh:
+        if parse_solidity_vk(fh.read())[1] != (vk.alpha1, vk.beta2, vk.gamma2, vk.delta2, vk.ic):
+            fail("cli export-verifier: the .sol does not parse back to the vk")
+    run("grind", ["grind", "--zero-bytes", "2"])
+
+    cs = build_spend_cs()
+    inp = load_spend_input(fix)
+    w = spend_full_witness(*[limb.to_device(limb.ints_to_limbs([inp[k]]), dev) for k in
+                             ("burn_key", "balance", "withdrawn", "extra_commitment")])[0]
+    if serialize.read_wtns(f["spend.wtns"])[1] != limb.limb_rows_to_ints(w.cpu().numpy()):
+        fail("cli witness: the .wtns differs from spend_full_witness on the card")
+    r1 = serialize.read_r1cs(f["spend.r1cs"])
+    terms = [sum(len(c[i]) for c in r1["constraints"]) for i in range(3)]
+    nnz = [len(m[0]) for m in cs.matrices_indexed()[:3]]
+    if (r1["num_constraints"], r1["num_wires"], r1["num_public_out"], terms) != (
+            cs.num_constraints, cs.num_wires, cs.num_public, nnz):
+        fail("cli setup: the .r1cs does not read back to build_spend_cs's counts")
+    if pub != [str(int(x)) for x in limb.limb_rows_to_ints(w[1:2].cpu().numpy())]:
+        fail("cli prove: public.json is not the witness's public wire")
+    out = {"s": secs, "zkey_bytes": os.path.getsize(f["spend.zkey"]),
+           "r1cs_bytes": os.path.getsize(f["spend.r1cs"]),
+           "wtns_bytes": os.path.getsize(f["spend.wtns"]), "launches": counts,
+           "native_grinder": pow_grind._lib() is not None,
+           "r1cs": {"constraints": r1["num_constraints"], "wires": r1["num_wires"],
+                    "terms": terms}}
+    log(f"cli: every command returned its expected code; the .wtns equals the card's witness, "
+        f"the .r1cs reads back to build_spend_cs's counts, the .sol to the vk; K1-K4 launched "
+        f"{counts}")
+    return out
 
 
 def main():
@@ -633,6 +884,7 @@ def main():
     spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
               for k, _, ss, sl in ptxas[src] if ss or sl]
     log("K2/K3/K4 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
+    phase_done("1 build")
     if spills and "--k4" not in sys.argv[1:]:  # --k4 also times older trees, whose K4 spilled
         fail(f"ptxas spills registers in {', '.join(spills)}")
     if "--msm-breakdown" in sys.argv[1:]:
@@ -826,6 +1078,8 @@ def main():
         log(f"K3 {group} m={m} B=2 exact (incl. infinity, doubling, cancel, zero scalars): "
             f"kernel_ms {km:.4f} plain_ms {pm:.4f}")
 
+    phase_done("2 kernels against their plain versions")
+
     # ---------------- the main path: Spend, domain 2^18, batch 16 ----------------
     batch = 16
     args, pubs = spend_batch(dev, batch)
@@ -891,6 +1145,7 @@ def main():
     log("slice " + json.dumps({"setup_s": setup_s, "witness_s": witness_s, **mean,
                                "timed_proves": runs, "batch": batch,
                                "proofs_per_s": pps, "launches": counts}))
+    phase_done("3 main path")
 
     # ---------------- K3 and K4 on the main path's own inputs ----------------
     # K3: every MSM of prove_batch at B = 16 on the same witnesses and h,
@@ -1000,15 +1255,25 @@ def main():
         row["launches"] = counts[row["key"]]
         row["launches_per_prove"] = per_prove[row["key"]]
 
-    # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
     del pk, vk, W, h, msms, kern, plain, sc, ic_pts, args, xm, br, want, a, b, wide
     gc.collect()
+    phase_done("4 K3 and K4 on the main path's inputs")
+
+    # ---------------- the command line at full width: Spend ----------------
+    cli = cli_phase(dev)
+    log("cli " + json.dumps(cli))
+    phase_done("6 cli")
+
+    # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
     pob, pob_rows = pob_phase(dev, card)
     for row in rows:
         key = row.pop("key")
+        row["launches_cli"] = cli["launches"][key]
         row["launches_pob"] = pob["launches"][key]
         row["launches_per_pob_prove"] = pob["launches_per_prove"][key]
     log("pob " + json.dumps(pob))
+    phase_done("5 ProofOfBurn")
+    log("phases_s " + json.dumps(PHASES))
     log(json.dumps({"kernels": rows + pob_rows}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

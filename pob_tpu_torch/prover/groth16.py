@@ -15,6 +15,7 @@ Verification is the host pairing check."""
 
 from __future__ import annotations
 
+import os
 import secrets
 import time
 from dataclasses import dataclass
@@ -26,6 +27,7 @@ from .. import _build
 from ..field import limb
 from ..field.limb import FR as FRS
 from ..field.ref import (
+    FQ_MOD,
     FR_MOD,
     G1_GEN,
     G2_GEN,
@@ -143,6 +145,16 @@ def _indexed_matrices(cs: ConstraintSystem):
     cidx = np.concatenate([ia, np.zeros(len(extra), np.int32)])
     pal_list = [int(c) for c in pal]
     return (rows, cols, cidx, pal_list), (*mb, pal_list), (*mc, pal_list)
+
+
+def snarkjs_matrices(cs: ConstraintSystem):
+    """(A, B) host COOs in snarkjs layout, (rows, cols, coefficients as
+    python ints): A with its nPublic+1 binding rows (row m + i: 1 * wire i),
+    as snarkjs zkey_new adds them; C is not needed by the prover (on the
+    domain it equals A.B). The entries and order of _indexed_matrices."""
+    (ra, ca_, ia, pal), (rb, cb, ib, _), _ = _indexed_matrices(cs)
+    pal = np.asarray(pal, dtype=object)
+    return (ra, ca_, pal[ia]), (rb, cb, pal[ib])
 
 
 def _mats_to_device(host_mats, device):
@@ -294,29 +306,77 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+# Bytes per proof that the h stage holds at its peak, per domain row: the
+# mat-vec's int64 sums (128 B) and the three vectors A.W, B.W, C.W (3 x 64 B);
+# and per row of one MATVEC_CHUNK step: the carry fix's (32-column) int64
+# copies of the row's sums, eight at most alive at once (2 KB). At domain
+# 2^22 that is 3.49 GB per proof; on an H100 the PoB h stage added 3.08 GB
+# per proof to the peak, at batch 4 and in chunks of 6 (chip_smoke phase 5).
+H_BYTES_PER_ROW = 128 + 3 * 64
+MATVEC_TMP_BYTES = 8 * 256
+MEM_SHARE = 0.9  # of the card's free memory one chunk of prove_batch may plan to use
+
+
+def h_stage_bytes(k: int) -> int:
+    """Device bytes one proof adds to the h stage's peak at domain 2^k."""
+    n = 1 << k
+    return H_BYTES_PER_ROW * n + MATVEC_TMP_BYTES * min(MATVEC_CHUNK, n)
+
+
+def batch_chunk(pk: ProvingKey, B: int, device) -> int:
+    """Proofs per pass of prove_batch: at most what K3's int32 indexing
+    allows over the key's largest query (msm.k3_max_batch), and on the card
+    at most what free device memory (the caching allocator's free blocks
+    included) holds of the h stage's temporaries (h_stage_bytes)."""
+    chunk = msm.k3_max_batch(max(1 << pk.k, int(pk.a_query[0].shape[0])))
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        chunk = min(chunk, int(free * MEM_SHARE) // h_stage_bytes(pk.k))
+    return max(1, min(B, chunk))
+
+
 def prove_batch(pk: ProvingKey, W, rs=None, timings: dict | None = None):
     """Batched Groth16: W (B, num_wires, 16) canonical limbs (wire 0 = 1) ->
     list of B (A, B2, C) proofs (host affine points). rs: optional list of
-    (r, s) blinding pairs. With a `timings` dict, the h stage and the MSMs
-    are synchronized and their seconds stored under "h_s" and "msm_s"."""
+    (r, s) blinding pairs. Any B: the h stage, the MSMs and the host tail go
+    batch_chunk proofs at a time, and a proof does not depend on its chunk.
+    With a `timings` dict, the h stage and the MSMs are synchronized and
+    their seconds over all chunks stored under "h_s" and "msm_s", and the
+    chunk under "chunk"."""
     B = int(W.shape[0])
-    t0 = time.perf_counter()
-    h = compute_h(pk.k, pk.mats, W)
+    chunk = batch_chunk(pk, B, W.device)
+    proofs, h_s, msm_s = [], 0.0, 0.0
+    for o in range(0, B, chunk):
+        Wc = W[o:o + chunk]
+        t0 = time.perf_counter()
+        h = compute_h(pk.k, pk.mats, Wc)
+        if timings is not None:
+            _sync(W.device)
+            t1 = time.perf_counter()
+        sums = [tuple(c.cpu().numpy() for c in p) if p is not None else None
+                for p in msm_stage(pk, Wc, h)]
+        del h
+        if timings is not None:
+            h_s += t1 - t0
+            msm_s += time.perf_counter() - t1
+        for i in range(int(Wc.shape[0])):
+            si = [tuple(c[i] for c in p) if p is not None else None for p in sums]
+            r, s = rs[o + i] if rs is not None else (None, None)
+            proofs.append(finish_proof(pk, si, r, s))
     if timings is not None:
-        _sync(W.device)
-        t1 = time.perf_counter()
-    sums = [tuple(c.cpu().numpy() for c in p) if p is not None else None
-            for p in msm_stage(pk, W, h)]
-    if timings is not None:
-        t2 = time.perf_counter()
-        timings["h_s"] = t1 - t0
-        timings["msm_s"] = t2 - t1
-    proofs = []
-    for i in range(B):
-        si = [tuple(c[i] for c in p) if p is not None else None for p in sums]
-        r, s = rs[i] if rs is not None else (None, None)
-        proofs.append(finish_proof(pk, si, r, s))
+        timings.update(h_s=h_s, msm_s=msm_s, chunk=chunk)
     return proofs
+
+
+def prove(pk: ProvingKey, witness_limbs, r: int | None = None, s: int | None = None):
+    """One proof: witness_limbs (num_wires, 16) canonical limbs with w[0] ==
+    1 -> (A, B2, C) host affine points, through prove_batch at B = 1 on the
+    key's device."""
+    dev = pk.a_query[0].device
+    W = torch.as_tensor(np.asarray(witness_limbs, np.int32)) if not torch.is_tensor(
+        witness_limbs) else witness_limbs
+    return prove_batch(pk, W.to(dev)[None], rs=[(r, s)])[0]
 
 
 def msm_stage(pk: ProvingKey, W, h):
@@ -368,8 +428,50 @@ def verify(vk: VerifyingKey, proof, public_inputs) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# proving-key interchange: the npz written by pob_tpu.prover.groth16.save_pk
+# proving-key interchange: the npz of save_pk (pob_tpu's save_pk writes the
+# same arrays), and snarkjs .zkey files (prover/serialize.py)
 # ---------------------------------------------------------------------------
+
+
+def _enc_int(x: int) -> np.ndarray:
+    return np.frombuffer(int(x).to_bytes(32, "little"), np.uint8)
+
+
+def _enc_g1(p) -> np.ndarray:
+    if p is None:
+        return np.zeros(64, np.uint8)
+    return np.concatenate([_enc_int(p[0]), _enc_int(p[1])])
+
+
+def _enc_g2(p) -> np.ndarray:
+    if p is None:
+        return np.zeros(128, np.uint8)
+    return np.concatenate([_enc_int(v) for c in p for v in c])
+
+
+def save_pk(path: str, pk: ProvingKey, vk: VerifyingKey):
+    """Write pk and vk as raw arrays (npz), the names and dtypes of
+    pob_tpu's save_pk: limbs uint32, matrix indices int32. load_pk reads it
+    back, and so does pob_tpu's load_pk."""
+    arrs = {
+        "k": np.int64(pk.k),
+        "num_public": np.int64(pk.num_public),
+        "alpha1": _enc_g1(pk.alpha1), "beta1": _enc_g1(pk.beta1),
+        "delta1": _enc_g1(pk.delta1), "beta2": _enc_g2(pk.beta2),
+        "delta2": _enc_g2(pk.delta2), "gamma2": _enc_g2(vk.gamma2),
+        "ic": np.stack([_enc_g1(p) for p in vk.ic]),
+    }
+    for name, _ in MSM_QUERIES:
+        for ci, c in enumerate(getattr(pk, name)):
+            arrs[f"{name}{ci}"] = c.cpu().numpy().astype(np.uint32)
+    for mi, (rows, cols, cf) in enumerate(pk.mats):
+        arrs[f"m{mi}_rows"] = rows.cpu().numpy().astype(np.int32)
+        arrs[f"m{mi}_cols"] = cols.cpu().numpy().astype(np.int32)
+        arrs[f"m{mi}_cf"] = cf.cpu().numpy().astype(np.uint32)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrs)
+    os.replace(tmp, path)
 
 
 def _dec_int(a) -> int:
@@ -418,3 +520,69 @@ def load_pk(path: str, device=None):
     """Read a key saved by pob_tpu.prover.groth16.save_pk (numpy only)."""
     with np.load(path) as d:
         return pk_from_arrays({k: d[k] for k in d.files}, device)
+
+
+_R_FQ_LIMBS = limb.int_to_limbs((1 << 256) % FQ_MOD)
+
+
+def _limbs_to_device(arr, device):
+    """(..., 16) uint16 host limbs -> int32 limb tensor on `device` (sent as
+    16 bits, widened there)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(device)
+    return t.to(torch.int32) & limb.MASK
+
+
+def _affine_limbs_to_jac(arr, device, g2: bool = False):
+    """(m, 2 | 4, 16) uint16 affine Montgomery limbs (x then y; all zero for
+    infinity) -> Jacobian point tensors on `device`, Z = R (Montgomery one)
+    or 0 at infinity."""
+    t = _limbs_to_device(arr, device)
+    per = t.shape[1] // 2
+    x, y = t[:, :per], t[:, per:]
+    if not g2:
+        x, y = x[:, 0], y[:, 0]
+    z = torch.zeros_like(x)
+    (z[:, 0] if g2 else z)[:] = torch.from_numpy(_R_FQ_LIMBS).to(device)
+    z[(t == 0).flatten(1).all(1)] = 0
+    return x.contiguous(), y.contiguous(), z
+
+
+def zkey_vk(d: dict) -> VerifyingKey:
+    """The VerifyingKey held in read_zkey's materials (host only)."""
+    return VerifyingKey(alpha1=d["alpha1"], beta2=d["beta2"], gamma2=d["gamma2"],
+                        delta2=d["delta2"], ic=d["ic"])
+
+
+def load_zkey(path: str, device=None):
+    """Build a ProvingKey and VerifyingKey from a snarkjs Groth16 .zkey file
+    (serialize.read_zkey), the query points and matrices on `device`. The
+    coefficients, stored as c R, become the key's c R^2 by one product with
+    R^2 (K1 on the card); a foreign zkey has no palette, so every entry keeps
+    its own coefficient. The affine bases are made as at setup."""
+    from .serialize import ZkeyFormatError, read_zkey
+
+    device = _build.resolve_device(device)
+    d = read_zkey(path)
+    k = _next_pow2(d["domain_size"])
+    if (1 << k) != d["domain_size"]:
+        raise ZkeyFormatError(f"zkey domain size {d['domain_size']} is not a power of two")
+    mats = []
+    for midx in (0, 1):
+        rows, cols, vals = d["coeffs"][midx]
+        cf = limb.mont_mul(FRS, _limbs_to_device(vals, device),
+                           torch.from_numpy(_R2_LIMBS).to(device))
+        mats.append(tuple(torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                          for a in (rows, cols)) + (cf,))
+    pk = ProvingKey(
+        k=k, num_public=d["n_public"],
+        alpha1=d["alpha1"], beta1=d["beta1"], delta1=d["delta1"],
+        beta2=d["beta2"], delta2=d["delta2"],
+        a_query=_affine_limbs_to_jac(d["a_pts"], device),
+        b1_query=_affine_limbs_to_jac(d["b1_pts"], device),
+        b2_query=_affine_limbs_to_jac(d["b2_pts"], device, g2=True),
+        l_query=_affine_limbs_to_jac(d["c_pts"], device),
+        h_query=_affine_limbs_to_jac(d["h_pts"], device),
+        mats=tuple(mats),
+    )
+    attach_bases(pk)
+    return pk, zkey_vk(d)

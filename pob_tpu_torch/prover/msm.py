@@ -39,6 +39,7 @@ N_BUCKETS = 1 << WINDOW_BITS
 SEG0 = 32  # most points one K3 thread sums at the first bucket-sum level
 SEG = 8  # most partials one K3 thread sums at each later level
 HIST_CHUNK = 256  # scalars per hist / scatter block (HT in csrc/msm.cuh)
+K3_MAX_DIGITS = (1 << 31) - 1  # K3 indexes a call's B m 32 sorted digits with int32
 
 _GROUP_ID = {"g1": 0, "g2": 1}
 _MSM_SRC = {"g1": "msm_g1.cu", "g2": "msm_g2.cu"}
@@ -360,6 +361,11 @@ def _layout_cuda(lib, counts, segs, stream, timing=None):
     return P, cursor
 
 
+def k3_max_batch(m: int) -> int:
+    """The most proofs one K3 call over m points can take (K3_MAX_DIGITS)."""
+    return K3_MAX_DIGITS // (N_WINDOWS * max(1, m))
+
+
 def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     """K3 launches (csrc/msm.cuh): hist, layout, scatter (the digits of each
     proof sorted into 255 buckets by value, as indices into the shifted
@@ -373,7 +379,7 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     if scalars.dim() != 3 or tuple(scalars.shape[1:]) != (m, limb.L):
         raise ValueError(f"scalars must be (B, {m}, 16), got {tuple(scalars.shape)}")
     B = scalars.shape[0]
-    if B * m * N_WINDOWS >= 1 << 31:  # the kernels index the sorted digits with int32
+    if B > k3_max_batch(m):
         raise ValueError(f"B * m = {B * m} is too large for one K3 call; split the batch")
     dev = scalars.device
     if B * m == 0:

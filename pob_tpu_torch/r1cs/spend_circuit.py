@@ -181,3 +181,9 @@ def assemble_witness(cs: ConstraintSystem, tensors: dict):
             t = wit.bits_to_limb_block(t.to(I32))
         buf[..., blk.start:blk.start + n, :] = t.reshape(batch + (n, limb.L))
     return buf
+
+
+def spend_full_witness(burn_key, balance, withdrawn, extra):
+    """(batch, num_wires, 16) Spend witness of build_spend_cs from the four
+    inputs' canonical limb scalars (batch, 16)."""
+    return assemble_witness(build_spend_cs(), spend_witness(burn_key, balance, withdrawn, extra))

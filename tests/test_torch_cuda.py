@@ -234,3 +234,62 @@ def test_pob_witness_on_card_equals_cpu(dev):
     assert set(card) == set(cpu)
     for name, v in cpu.items():
         assert torch.equal(card[name].cpu().long(), v.long()), name
+
+
+def _toy_keyed(dev):
+    """The toy circuit of test_toy_slice_on_card_equals_cpu, keyed on `dev`,
+    and five witnesses (B, 5, 16) on it."""
+    from pob_tpu_torch.prover import groth16
+
+    cs = ConstraintSystem()
+    z1, z2 = cs.alloc_block("pub", (2,))
+    cs.mark_public(2)
+    x, y = cs.alloc_block("priv", (2,))
+    cs.add([(x, 1)], [(y, 1)], [(z1, 1)])
+    cs.add([(x, 1), (y, 1)], [(x, 1)], [(z2, 1)])
+    ws = [[1, a * b % FR_MOD, (a + b) * a % FR_MOD, a, b] for a, b in
+          ((3, 5), (7, 11), (13, 17), (19, 23), (29, 31))]
+    W = torch.from_numpy(limb.ints_to_limbs([v for w in ws for v in w]).reshape(5, 5, 16))
+    pk, vk = groth16.setup(cs, rng=iter(range(101, 200, 7)).__next__, device=dev)
+    return cs, pk, vk, W.to(dev), [w[1:3] for w in ws]
+
+
+def test_zkey_points_from_bases_equal_plain(dev, tmp_path):
+    """write_zkey on the card writes window 0 of the key's affine bases (K3's
+    shifted-bases kernel); without bases it writes the plain
+    msm._packed_affine of the Jacobian points: the files are equal."""
+    import dataclasses
+
+    from pob_tpu_torch.prover import serialize
+
+    cs, pk, vk, _, _ = _toy_keyed(dev)
+    serialize.write_zkey(str(tmp_path / "bases.zkey"), pk, vk, cs)
+    serialize.write_zkey(str(tmp_path / "plain.zkey"), dataclasses.replace(pk, bases=None), vk,
+                         cs)
+    assert (tmp_path / "bases.zkey").read_bytes() == (tmp_path / "plain.zkey").read_bytes()
+
+
+def test_load_zkey_on_card_proves_like_original(dev, tmp_path):
+    from pob_tpu_torch.prover import groth16, serialize
+
+    cs, pk, vk, W, pubs = _toy_keyed(dev)
+    serialize.write_zkey(str(tmp_path / "k.zkey"), pk, vk, cs)
+    lpk, lvk = groth16.load_zkey(str(tmp_path / "k.zkey"), dev)
+    assert lpk.bases is not None and lvk.ic == vk.ic
+    rs = [(5 + i, 6 + i) for i in range(5)]
+    got = groth16.prove_batch(lpk, W, rs=rs)
+    assert got == groth16.prove_batch(pk, W, rs=rs)
+    assert all(groth16.verify(lvk, p, x) for p, x in zip(got, pubs))
+    assert groth16.prove(lpk, W[2], r=7, s=8) == got[2]
+
+
+def test_prove_batch_in_chunks_on_card(dev, monkeypatch):
+    from pob_tpu_torch.prover import groth16
+
+    _, pk, _, W, _ = _toy_keyed(dev)
+    assert groth16.batch_chunk(pk, 5, W.device) == 5
+    rs = [(5 + i, 6 + i) for i in range(5)]
+    whole = groth16.prove_batch(pk, W, rs=rs)
+    monkeypatch.setattr(groth16, "batch_chunk", lambda pk, B, device: 2)
+    tm = {}
+    assert groth16.prove_batch(pk, W, rs=rs, timings=tm) == whole and tm["chunk"] == 2

@@ -151,3 +151,40 @@ def test_sparse_matvec_chunks_match_ints(monkeypatch):
         for i, j, c in zip(rows, cols, coef):
             want[i] = (want[i] + c * w[b][j]) % FR_MOD
         assert tl.limb_rows_to_ints(chunked[b].numpy()) == [x * r % FR_MOD for x in want]
+
+
+def test_prove_batch_in_chunks_equals_one_pass(keyed, monkeypatch):
+    """With its chunk limited to 2, prove_batch proves B = 5 in three passes
+    (2, 2, 1); with fixed (r, s) the proofs equal those of one pass."""
+    _, _, _, path = keyed
+    tpk, _ = tg.load_pk(path, device="cpu")
+    cases = [toy_witness(200 + i, 5000 + 31 * i) for i in range(5)]
+    W = torch.from_numpy(np.stack([tl.ints_to_limbs(w) for w, _ in cases]))
+    rs = [(10 + i, 20 + i) for i in range(5)]
+    whole = tg.prove_batch(tpk, W, rs=rs)
+    monkeypatch.setattr(tg, "batch_chunk", lambda pk, B, device: 2)
+    tm = {}
+    assert tg.prove_batch(tpk, W, rs=rs, timings=tm) == whole
+    assert tm["chunk"] == 2 and tm["h_s"] > 0 and tm["msm_s"] > 0
+
+
+def test_batch_chunk_rule(keyed, monkeypatch):
+    """The chunk is the least of B, K3's int32 limit over the largest query
+    and, on the card, MEM_SHARE of free memory over h_stage_bytes."""
+    from pob_tpu_torch.prover import msm as tm_
+
+    _, _, _, path = keyed
+    tpk, _ = tg.load_pk(path, device="cpu")
+    cpu = torch.device("cpu")
+    m = max(1 << tpk.k, int(tpk.a_query[0].shape[0]))
+    assert tg.batch_chunk(tpk, 3, cpu) == 3
+    assert tg.batch_chunk(tpk, 1 << 40, cpu) == tm_.k3_max_batch(m) == ((1 << 31) - 1) // (32 * m)
+    assert tm_.k3_max_batch(1 << 22) == 15 and tm_.k3_max_batch(1 << 18) == 255
+    # the PoB key (domain 2^22): 3.49 GB per proof; 26 GB free, 2 GB cached
+    assert tg.h_stage_bytes(22) == 320 * (1 << 22) + 2048 * (1 << 20)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (26 * 10**9, 80 * 10**9))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 60 * 10**9)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 58 * 10**9)
+    pob_like = type("K", (), {"k": 22, "a_query": (torch.zeros(3_962_976, 0),)})()
+    assert tg.batch_chunk(pob_like, 16, torch.device("cuda")) == int(28e9 * 0.9) // tg.h_stage_bytes(22) == 7
+    assert tg.batch_chunk(pob_like, 4, torch.device("cuda")) == 4

@@ -1,5 +1,6 @@
-"""Import guard: the port (pob_tpu_torch/**.py) and chip_smoke.py import
-neither jax nor anything of the JAX package pob_tpu."""
+"""Import guard: the port (pob_tpu_torch/**.py), its entry module
+graft_entry_torch.py and chip_smoke.py import neither jax nor anything of
+the JAX package pob_tpu."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "pob_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "pob_tpu_torch").rglob("*.py")) + [ROOT / "graft_entry_torch.py",
+                                                         ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -26,6 +28,10 @@ def _imports(path: Path):
 def test_port_files_exist():
     assert len(FILES) > 20
     assert (ROOT / "pob_tpu_torch" / "csrc" / "mont.cu").exists()
+    for name in ("cli.py", "__main__.py", "prover/serialize.py", "prover/solidity.py",
+                 "harness/generate.py", "harness/rlp_host.py", "harness/pow_grind.py",
+                 "circuits/spend.py"):
+        assert ROOT / "pob_tpu_torch" / name in FILES, name
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
