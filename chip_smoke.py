@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (pob_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # from the repo root
-    python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 breakdown
+    python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 and K5 breakdown
     python3 chip_smoke.py --k4             # phase 1, then K4's times alone
 
 Phases (any failure exits non-zero; there is no CPU run):
@@ -21,31 +21,43 @@ Phases (any failure exits non-zero; there is no CPU run):
      cache cleared, median of 3 builds as the caller sees them, and the
      median of 3 of its kernels' time alone) is held against its plain
      version. Both versions are timed with CUDA events.
-  3. the main path at full width: build_spend_cs, setup at domain 2^18, a
-     batch-16 Spend witness on the card, one warm-up and two timed
-     prove_batch calls, host verification of 4 proofs (and rejection with a
-     tampered public input). The kernels' launch counters are zeroed just
-     before and read just after, and each kernel must have run.
-  4. K3 and K4 on the main path's own inputs: the MSM stage of one prove
-     under torch.cuda.set_sync_debug_mode("error") (K3 reads nothing back
-     to the host); K3's time per launch for each of the five MSMs; the five
+  3. the main path at full width: build_spend_cs, setup at domain 2^18
+     with the witness-MSM plan (pob_tpu's default), a batch-16 Spend
+     witness on the card, one warm-up and two timed prove_batch calls on
+     the planned path (K5 for the four witness MSMs, K3 for the h-MSM),
+     host verification of 4 proofs (and rejection with a tampered public
+     input). The kernels' launch counters are zeroed just before and read
+     just after, and each kernel must have run. Then two timed proves of
+     the same witnesses on the plain path (POB_NO_PLAN=1): the same 16
+     proofs, bit for bit.
+  4. K3, K4, K5 and K6 on the main path's own inputs: the MSM stage of one
+     prove, planned and plain, under torch.cuda.set_sync_debug_mode("error")
+     (K3 and K5 read nothing back to the host); K3's time per launch for
+     each of the five MSMs and K5's for the planned ones; the five
      MSMs at B = 16 (proofs 0 and 15 against the plain version) and every
      query point of the setup (against the plain version over the setup's
      scalars); K4's two setup calls (G1, G2) timed, median of 3, beside
      two bounds: a mixed add per nonzero digit after each scalar's first
      (this design's least count) and a full add per nonzero digit (the first
-     port's count).
+     port's count). K5 per group on the planned MSMs at B = 16 (proofs 0
+     and 15 against the plain version, every position), K6's doubling
+     chains of every full point against the plain version and the plan's,
+     the plan's bit points against the plain affine conversion, each
+     kernel timed beside its bound; the plan written to a pob_tpu-format
+     .npz and read back (the same plan, the same proofs).
   5. the ProofOfBurn path at bench.py's PoB size (TEST_CONFIG: 3,966,130
      constraints, domain 2^22, batch 4), with the Spend objects freed:
      build_pob_cs, setup on the card (host scalars, K4, the key's affine
-     bases timed apart), a batch-4 witness made on the card from the fixture
-     as bench.py makes it (proof_extra_commitment = pec0 + 1 + i, wire 1
+     bases and the witness-MSM plan timed apart), a batch-4 witness made
+     on the card from the fixture as bench.py makes it
+     (proof_extra_commitment = pec0 + 1 + i, wire 1
      held against pob_expected_commitment), one warm-up prove stage by stage
      and two timed prove_batch calls, 4 proofs verified and 4 tampered
      publics rejected; launch counters zeroed before and read after, each
      kernel must have run; peak device memory through setup, the witness,
      the h stage and the MSM stage; the witness again by part (a cProfile
-     of it gives the hash traces' share). Then every kernel on this path's
+     of it gives the hash traces' share); the 4 proofs again on the plain
+     path (POB_NO_PLAN=1), bit for bit. Then every kernel on this path's
      own inputs against its plain version, each row's numbers from one
      input: K1 on the h stage's product A.W x B.W (4 x 2^22); K2 on its
      first transform, intt(A.W) (4 rows x 2^22, three passes; also one
@@ -53,8 +65,11 @@ Phases (any failure exits non-zero; there is no CPU run):
      the B = 4 h- and b2-MSMs with scalars kept at 65,536 positions spread
      over [0, m), the last included, and the full h-MSM timed beside its
      bound; K4: the setup's query points at 65,536 positions per group
-     against the plain version over the setup's own scalars (computed again
-     on the host), and the K4 call over all of them timed. Then a batch of
+     against the plain version over the setup's own scalars (kept from its
+     call), and the K4 call over all of them timed; K5 per group at B = 4
+     on a copy of the plan whose points are kept at 65,536 positions per
+     query, the full call timed; K6 on 512 full points of each query, timed
+     over all of them. Then a batch of
      16 (more than K3's int32 limit of 15 at m = 2^22 and more than free
      memory holds) in one prove_batch, which splits it into chunks: the
      first 4 proofs must equal the batch-4 proofs (same witnesses, same
@@ -70,7 +85,9 @@ Phases (any failure exits non-zero; there is no CPU run):
      tampered public), export-verifier (the .sol parses back to the vk),
      grind (2 zero bytes); the .wtns must equal spend_full_witness on the
      card and the .r1cs read back to build_spend_cs's counts; launch counters
-     zeroed before, K1-K4 must each have run. One `cli {...}` JSON line.
+     zeroed before, K1-K4 and K6 must each have run (prove reads the zkey,
+     so it takes the plain path and K5 does not run). One `cli {...}` JSON
+     line.
 Each phase's end is printed with the script's elapsed time (`phases_s`).
 Then the kernel table as one JSON line (Spend rows with their launches on
 the main path, the cli phase and the PoB path, then the PoB rows), the card,
@@ -87,6 +104,7 @@ port's G2 table kernel spilled."""
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -202,6 +220,108 @@ def msm_breakdown(torch, msm, msms) -> dict:
     return out
 
 
+def plan_groups(pk):
+    """(group, query names, PlanGroup) of each group of the key's plan."""
+    from pob_tpu_torch.prover.groth16 import PLAN_GROUPS
+
+    return [(g, names, getattr(pk.plan, g)) for g, names in PLAN_GROUPS]
+
+
+def k5_call(group, g, W, timing=None):
+    """K5 on the plan group g for the witnesses W."""
+    from pob_tpu_torch.prover import bitsum
+
+    return bitsum.bitsum_msm(group, g.pts, g.bit_idx, g.full_idx, g.counts, W, timing)
+
+
+def k5_breakdown(torch, pk, W) -> dict:
+    """K5's time per launch (CUDA events; second call) for each group call
+    of the planned path and for each query of it alone (q = 1, a copy of
+    its rows of the plan)."""
+    from pob_tpu_torch.prover.groth16 import PlanGroup
+
+    out = {}
+    for group, names, g in plan_groups(pk):
+        parts = [("+".join(n.split("_")[0] for n in names), g)]
+        if len(names) > 1:
+            parts += [(n.split("_")[0], PlanGroup(*(t[i:i + 1].clone() for t in (
+                g.pts, g.bit_idx, g.full_idx, g.counts)))) for i, n in enumerate(names)]
+        for label, sub in parts:
+            k5_call(group, sub, W)
+            torch.cuda.synchronize()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            timing = []
+            s.record()
+            k5_call(group, sub, W, timing)
+            e.record()
+            torch.cuda.synchronize()
+            ms = {lab: a.elapsed_time(b) for lab, a, b in timing}
+            total = s.elapsed_time(e)
+            ms["other"] = total - sum(ms.values())
+            out[label] = {"group": group, "B": W.shape[0], "M": sub.pts.shape[1],
+                          "total_ms": total, "launches": len(timing), "ms": ms}
+            log(f"K5 breakdown {label} ({group}, B={W.shape[0]}, M={g.pts.shape[1]}, "
+                f"{len(timing)} launches): total_ms {total:.3f} | "
+                + " ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return out
+
+
+def k5_bound(group, g, W):
+    """K5's bound for one group call on the witnesses W: a mixed add per set
+    bit of a live plan point (counted from W) against the plan's points,
+    the witnesses and the index arrays read once and the sums written once.
+    Returns (ms, by, set bits)."""
+    from pob_tpu_torch.prover import bitsum
+
+    q, M = g.pts.shape[:2]
+    live = (g.pts != 0).any(-1)
+    nset = int((bitsum.plan_bits(M, g.bit_idx, g.full_idx, g.counts, W).bool()
+                & live[:, None]).sum())
+    B, nw = W.shape[:2]
+    nbytes = (g.pts.numel() * 4 + B * nw * 64 + (g.bit_idx.numel() + g.full_idx.numel()) * 4
+              + q * B * 3 * COORD_BYTES[group])
+    ms, by = bound(nbytes, nset * MADD_MULS[group])
+    return ms, by, nset
+
+
+def fq_inv_muls(group: str) -> int:
+    """Fq products of one coordinate inversion (fe_inv: 253 squarings and a
+    product per set bit of q - 2 below bit 253; on G2 4 Fq products around
+    it)."""
+    from pob_tpu_torch.field.ref import FQ_MOD
+
+    return 253 + bin((FQ_MOD - 2) & ((1 << 253) - 1)).count("1") + (4 if group == "g2" else 0)
+
+
+def k6_bound(group: str, n: int, windows: int, dbl: int):
+    """K6's least work for n points: the doublings, then per output 3
+    coordinate products (its share of one batched inversion of every Z) and
+    the products to affine (4 / 11 Fq products), plus that one inversion;
+    bytes: the Jacobian points in, the packed affine points out."""
+    coord_mul = 1 if group == "g1" else 3
+    to_affine = 4 if group == "g1" else 11
+    ops = (n * (windows - 1) * dbl * DBL_MULS[group] + n * windows * (3 * coord_mul + to_affine)
+           + fq_inv_muls(group))
+    return bound(n * 3 * COORD_BYTES[group] + n * windows * COORD_BYTES[group], ops)
+
+
+def plan_full_points(pk, group, names, g, keep=None):
+    """The Jacobian points of the group's full wires, queries in order (as
+    attach_msm_plan gathers them for K6); with keep, only those of each
+    query's full wires."""
+    import torch
+
+    parts = []
+    for qi, name in enumerate(names):
+        nf = int(g.counts[qi, 1])
+        off = pk.num_public + 1 if name == "l_query" else 0
+        idx = g.full_idx[qi, :nf].long() - off
+        if keep is not None:
+            idx = idx[keep[keep < nf]]
+        parts.append(tuple(c[idx] for c in getattr(pk, name)))
+    return tuple(torch.cat(cs, 0) for cs in zip(*parts))
+
+
 def make_rand(dev, seed: int):
     """rand_elems(shape): random canonical elements (< p of Fr and Fq: top
     limb < 0x3064) on dev, from a generator seeded with seed."""
@@ -272,10 +392,153 @@ def same_points(name, group, p, q):
              f"{(~eq).nonzero().squeeze(1)[:4].tolist()})")
 
 
+def _flat(p):
+    return tuple(c.flatten(0, 1) for c in p)
+
+
+def plan_checks(pk, W, label, chk=None, keep_pos=None, keep_full=None, groups=("g1", "g2")):
+    """K5 and K6 on a path's own inputs, against their plain versions
+    (tolerance 0), with the kernel's time beside its bound. K5: each group's
+    call on all of W, timed (3 calls); held against the plain version on
+    the proofs `chk` (the kernel's sums of those proofs), or, with
+    keep_pos, both on a copy of the plan whose points are kept at those
+    positions of each query ((0, 0) elsewhere). K6: (254, 1, wire-major)
+    on each group's full points, timed over all of them; its chains must
+    equal the plan's, and it is held against the plain version on all of
+    them or, with keep_full, on those of each query's full wires. Without
+    keep_pos, the plan's bit points are held against the plain
+    msm._packed_affine of the key's Jacobian points. Returns (rows, info)."""
+    import torch
+
+    from pob_tpu_torch.prover import bitsum, msm
+
+    rows, info = [], {}
+    fb = bitsum.FULL_BITS
+    for group, names, g in plan_groups(pk):
+        if group not in groups:
+            continue
+        G, q, M = group.upper(), g.pts.shape[0], g.pts.shape[1]
+        B = W.shape[0]
+        qnames = "+".join(n.split("_")[0] for n in names)
+        km = cuda_ms(lambda: k5_call(group, g, W), 3)
+        bms, by, nset = k5_bound(group, g, W)
+        if keep_pos is None:
+            kern = tuple(c[:, chk] for c in k5_call(group, g, W))
+            Wc = W[chk]
+            plain, pm = once_ms(lambda: bitsum.bitsum_plain(group, g.pts, g.bit_idx, g.full_idx,
+                                                            g.counts, Wc))
+            checked, sampled_ms = f"proofs {chk.tolist()} of the B={B} call, every position", None
+        else:
+            sp = torch.zeros_like(g.pts)
+            sp[:, keep_pos] = g.pts[:, keep_pos]
+            kern, sampled_ms = once_ms(lambda: bitsum.bitsum_msm(group, sp, g.bit_idx, g.full_idx,
+                                                                 g.counts, W))
+            plain, pm = once_ms(lambda: bitsum.bitsum_plain(group, sp, g.bit_idx, g.full_idx,
+                                                            g.counts, W))
+            checked = f"B={B}, the plan's points kept at {len(keep_pos)} positions per query"
+            del sp
+        same_points(f"K5 {label} {G} ({qnames})", group, _flat(kern), _flat(plain))
+        log(f"K5 {label} {G} {qnames} (q={q}, M={M}, B={B}, {nset} set bits): exact on {checked}; "
+            f"kernel_ms {km:.3f} (all of W) plain_ms {pm:.3f} bound_ms {bms:.4f} ({by}), "
+            f"share {bms / km:.3f}")
+        rows.append({"name": f"K5 bitsum ({label}: {G}, {qnames})", "key": f"bitsum_{group}",
+                     "route": "cuda", "source": "pob_tpu_torch/csrc/bitsum.cuh",
+                     "replaces": "pob_tpu/prover/groth16.py:801", "max_abs_err": 0, "ms": km,
+                     "plain_ms": pm, "bound_ms": bms, "bound_by": by, "bound_share": bms / km,
+                     "library_ms": None, "shape": f"q={q} x M={M} {G} points, B={B}",
+                     "set_bits": nset, "checked_on": checked, "sampled_ms": sampled_ms})
+        del kern, plain
+
+        full = plan_full_points(pk, group, names, g)
+        n = full[0].shape[0]
+        chains = msm.affine_bases(group, full, fb, 1, True)
+        k6_ms = cuda_ms(lambda: msm.affine_bases(group, full, fb, 1, True), 3)
+        mb, o = g.bit_idx.shape[1], 0
+        for qi in range(q):
+            nf = int(g.counts[qi, 1])
+            exact(f"K6 {label} {G}: the plan's chains of query {qi}",
+                  g.pts[qi, mb:mb + nf * fb], chains[o * fb:(o + nf) * fb])
+            o += nf
+        if keep_full is None:
+            sub, kern6 = full, chains
+        else:
+            sub = plan_full_points(pk, group, names, g, keep_full)
+            kern6 = msm.affine_bases(group, sub, fb, 1, True)
+        plain6, k6_pm = once_ms(lambda: msm.affine_bases_plain(group, sub, fb, 1, True))
+        exact(f"K6 {label} {G} chains", kern6, plain6)
+        k6_bms, k6_by = k6_bound(group, n, fb, 1)
+        log(f"K6 {label} {G} chains (254 doublings of {n} full points; plain on "
+            f"{sub[0].shape[0]}) exact, equal to the plan's: kernel_ms {k6_ms:.3f} plain_ms "
+            f"{k6_pm:.3f} bound_ms {k6_bms:.4f} ({k6_by}), share {k6_bms / k6_ms:.4f}")
+        rows.append({"name": f"K6 chains ({label}: {G}, the plan's full points)", "key": "chains",
+                     "route": "cuda", "source": "pob_tpu_torch/csrc/msm.cuh",
+                     "replaces": "pob_tpu/prover/groth16.py:674", "max_abs_err": 0,
+                     "ms": k6_ms, "plain_ms": k6_pm, "bound_ms": k6_bms, "bound_by": k6_by,
+                     "bound_share": k6_bms / k6_ms, "library_ms": None,
+                     "shape": f"{n} {G} points x 254 doublings",
+                     "plain_shape": f"{sub[0].shape[0]} of them"})
+        del chains, kern6, plain6, full, sub
+        if keep_pos is None:
+            for qi, name in enumerate(names):
+                nb = int(g.counts[qi, 0])
+                off = pk.num_public + 1 if name == "l_query" else 0
+                idx = g.bit_idx[qi, :nb].long() - off
+                exact(f"plan {label} {name} bit points", g.pts[qi, :nb],
+                      msm._packed_affine(group, tuple(c[idx] for c in getattr(pk, name))))
+        info[group] = {"q": q, "M": M, "mb": mb, "mf": g.full_idx.shape[1],
+                       "counts": g.counts.tolist(), "set_bits": nset, "full_points": n}
+    return rows, info
+
+
+def plan_cache_roundtrip(pk, cs, W, rs, proofs) -> dict:
+    """The key's plan written to a pob_tpu-format .npz (attach_msm_plan
+    with a cache_path that does not exist yet) and read back: the plan read
+    equals the plan built, and its proofs equal `proofs` for the same
+    (r, s). The key keeps its original plan."""
+    import torch
+
+    from pob_tpu_torch.prover import groth16
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "spend_plan.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    orig = pk.plan
+    try:
+        _, write_s = timed(lambda: groth16.attach_msm_plan(pk, cs, cache_path=path))
+        _, read_s = timed(lambda: groth16.attach_msm_plan(pk, cs, cache_path=path))
+        for group in ("g1", "g2"):
+            a, b = getattr(pk.plan, group), getattr(orig, group)
+            for name in ("pts", "bit_idx", "full_idx", "counts"):
+                if not torch.equal(getattr(a, name), getattr(b, name)):
+                    fail(f"plan cache: {group} {name} read back differs from the plan built")
+        if groth16.prove_batch(pk, W, rs=rs) != proofs:
+            fail("plan cache: proofs from the plan read back differ")
+    finally:
+        pk.plan = orig
+    out = {"bytes": os.path.getsize(path), "write_s": write_s, "read_s": read_s}
+    os.remove(path)
+    log(f"plan cache: {out['bytes']} bytes written in {write_s:.3f} s (the plan built again), "
+        f"read back in {read_s:.3f} s; the plan read equals the plan built, and its "
+        f"{len(proofs)} proofs are the same")
+    return out
+
+
+def plain_path(fn):
+    """fn() with POB_NO_PLAN=1 (prove_batch's plain path)."""
+    os.environ["POB_NO_PLAN"] = "1"
+    try:
+        return fn()
+    finally:
+        del os.environ["POB_NO_PLAN"]
+
+
 POB_BATCH = 4  # bench.py's BENCH_POB_BATCH
 POB_SAMPLE = 1 << 16  # positions kept in the sampled K3 and K4 checks
 POB_K4_CHUNK = 1 << 14  # sampled K4 scalars per plain call (its G2 sums' memory)
 POB_K2_MORE = (20, 21)  # K2 also at these k, one random row each (2 and 3 passes)
+POB_K6_SAMPLE = 512  # full points of each query in the sampled K6 check
 
 
 def pob_batch(cfg, dev, batch: int):
@@ -348,6 +611,24 @@ def spread_positions(n: int, count: int):
     return np.unique(np.arange(count, dtype=np.int64) * (n - 1) // (count - 1))
 
 
+@contextlib.contextmanager
+def keep_setup_scalars(groth16, kept: list):
+    """Within the block, every groth16.setup_scalars result is also
+    appended to `kept` (setup computes them and drops them; the PoB phase's
+    K4 check needs them again)."""
+    real = groth16.setup_scalars
+
+    def keep(cs, toxic):
+        kept.append(real(cs, toxic))
+        return kept[-1]
+
+    groth16.setup_scalars = keep
+    try:
+        yield
+    finally:
+        groth16.setup_scalars = real
+
+
 def pob_phase(dev, card):
     """The ProofOfBurn path at bench.py's size (TEST_CONFIG, domain 2^22,
     batch 4): build, setup, witness on the card, warm-up and timed proves,
@@ -390,9 +671,10 @@ def pob_phase(dev, card):
     log(f"PoB build_pob_cs(TEST_CONFIG): {cs.num_constraints} constraints, {cs.num_wires} wires, "
         f"nnz {nnz}, palette {len(pal)}, {build_cs_s:.3f} s")
 
-    st = {}
+    st, kept = {}, []
     t0 = time.perf_counter()
-    pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
+    with keep_setup_scalars(groth16, kept):  # K4's check below reuses them (~60 s of host ints)
+        pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     k_pob = pk.k
@@ -402,10 +684,15 @@ def pob_phase(dev, card):
     jac_gb = sum(c.numel() * c.element_size() for q, _ in groth16.MSM_QUERIES
                  for c in getattr(pk, q)) / 1e9
     mats_gb = sum(t.numel() * t.element_size() for m in pk.mats for t in m) / 1e9
+    if pk.plan is None:
+        fail("PoB setup did not give the key its witness-MSM plan")
+    plan_gb = pk.plan.nbytes() / 1e9
     log(f"PoB setup_s {setup_s:.3f} (host scalars {st['scalars_s']:.3f}, K4 {st['k4_s']:.3f}, "
-        f"attach_bases {st['bases_s']:.3f}, rest {setup_s - sum(st.values()):.3f}); key on the "
-        f"card: shifted bases {key_gb:.3f} GB, Jacobian queries {jac_gb:.3f} GB, matrices "
-        f"{mats_gb:.3f} GB")
+        f"attach_bases {st['bases_s']:.3f}, attach_msm_plan {st['plan_s']:.3f}, rest "
+        f"{setup_s - sum(st.values()):.3f}); key on the card: shifted bases {key_gb:.3f} GB, "
+        f"Jacobian queries {jac_gb:.3f} GB, matrices {mats_gb:.3f} GB, the plan {plan_gb:.3f} GB "
+        f"(counts G1 {pk.plan.g1.counts.tolist()} G2 {pk.plan.g2.counts.tolist()}, M "
+        f"{pk.plan.g1.pts.shape[1]} / {pk.plan.g2.pts.shape[1]})")
     peak("setup")
     after_setup = dict(_build.LAUNCHES)
 
@@ -467,6 +754,19 @@ def pob_phase(dev, card):
             fail(f"PoB proof {i} verifies with a tampered public input")
     log(f"PoB verify: {POB_BATCH} proofs accepted, {POB_BATCH} tampered publics rejected "
         f"({time.perf_counter() - t0:.1f} s on the host)")
+    torch.cuda.reset_peak_memory_stats()
+    tm_plain = {}
+    before_plain = dict(_build.LAUNCHES)
+    plain_proofs, plain_prove_s = timed(
+        lambda: plain_path(lambda: groth16.prove_batch(pk, W, rs=rs, timings=tm_plain)))
+    gb["plain prove"] = torch.cuda.max_memory_allocated() / 1e9
+    per_plain = {k: _build.LAUNCHES[k] - before_plain[k] for k in counts}
+    if plain_proofs != proofs:
+        fail(f"PoB: the {POB_BATCH} planned proofs differ from the plain path's")
+    tm_plain["prove_s"] = plain_prove_s
+    log(f"PoB plain path (POB_NO_PLAN=1): the same {POB_BATCH} proofs bit for bit; h_s "
+        f"{tm_plain['h_s']:.4f} msm_s {tm_plain['msm_s']:.4f} prove_s {plain_prove_s:.4f}, "
+        f"peak {gb['plain prove']:.3f} GB")
     wit_parts = witness_parts(TEST_CONFIG, cs, kw)  # after the counts: its launches are extra
     log("PoB witness again, by part (s): " + json.dumps(wit_parts))
     rows = []
@@ -533,11 +833,13 @@ def pob_phase(dev, card):
         out[:, keep] = sc[:, keep]
         return out
 
+    torch.cuda.empty_cache()  # the plain versions' temporaries beside a 58 GB key and plan
     checks = (("a-MSM proof 0", "g1", "a_query", W[:1]),
               ("h-MSM sampled", "g1", "h_query", sampled(h)),
               ("b2-MSM sampled", "g2", "b2_query", sampled(W)))
     for name, group, q, sc in checks:
         pts = getattr(pk, q)
+        msm.msm_batched(group, pts, sc, pk.bases[q])  # refills the allocator's cache untimed
         (kern, km3), (plain, pm3) = (
             once_ms(lambda: msm.msm_batched(group, pts, sc, pk.bases[q])),
             once_ms(lambda: msm.msm_plain(curve.ops_for(group), pts, sc)))
@@ -564,13 +866,30 @@ def pob_phase(dev, card):
                                f"version's, sampled_ms the kernel's, sampled_bound_ms its bound",
                  "sampled_ms": h_sampled[0], "sampled_bound_ms": sbms})
     del h
+
+    # K5 and K6 on this path's own inputs: K5 at B = 4 with the plan's
+    # points kept at POB_SAMPLE positions per query; K6 on POB_K6_SAMPLE
+    # full points of each query, timed over all of them
+    keep_full = torch.from_numpy(spread_positions(
+        max(int(pk.plan.g1.counts[:, 1].max()), int(pk.plan.g2.counts[:, 1].max())),
+        POB_K6_SAMPLE)).to(dev)
+    prow, pinfo = [], {}
+    torch.cuda.empty_cache()
+    for group, _, g in plan_groups(pk):
+        keep_pos = torch.from_numpy(spread_positions(g.pts.shape[1], POB_SAMPLE)).to(dev)
+        r_, i_ = plan_checks(pk, W, "PoB", keep_pos=keep_pos, keep_full=keep_full,
+                             groups=(group,))
+        prow += r_
+        pinfo.update(i_)
+    rows += prow
     W = W.cpu()  # back on the card for the zkey round trip; off it for K4's plain sums
 
-    # K4 on the setup's own scalars (computed again on the host), at
+    # K4 on the setup's own scalars (kept from its call), at
     # POB_SAMPLE positions per group: the setup's query points there against
     # the plain version; the kernel timed over every scalar of the group
     torch.cuda.empty_cache()
-    _, sc_host, _ = groth16.setup_scalars(cs, TOXIC)
+    (_, sc_host, _), = kept
+    del kept
     ic_pts = curve.g1_points_to_device(vk.ic, dev)
     for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):
         sizes = [len(sc_host[q]) for q in names]
@@ -621,12 +940,15 @@ def pob_phase(dev, card):
         key = row.pop("key")
         row["launches"] = counts[key]
         row["launches_per_prove"] = per_prove[key]
+        row["launches_per_plain_prove"] = per_plain[key]
 
     out = {"constraints": cs.num_constraints, "wires": cs.num_wires, "nnz": nnz,
            "k": k_pob, "batch": POB_BATCH, "build_cs_s": build_cs_s, "setup_s": setup_s,
            **{f"setup_{k}": v for k, v in st.items()}, "witness_s": witness_s, **mean,
            "timed_proves": runs, "proofs_per_s": pps, "witness_parts_s": wit_parts,
            "matvec_s": matvec_s, "peak_gb": gb, "batch16": big, "zkey": zk,
+           "plan_gb": plan_gb, "plan": pinfo, "plain_path": tm_plain,
+           "launches_per_plain_prove": per_plain,
            "key_gb": {"bases": key_gb, "jacobian": jac_gb, "mats": mats_gb},
            "launches": counts, "launches_per_prove": per_prove}
     return out, rows
@@ -802,8 +1124,8 @@ def cli_phase(dev) -> dict:
     run("prove", ["prove", "--circuit", "spend", "--input", fix, "--zkey", f["spend.zkey"],
                   "--proof", f["proof.json"], "--vk", f["vk.json"]])
     counts = dict(_build.LAUNCHES)
-    for key, n in counts.items():
-        if n <= 0:
+    for key, n in counts.items():  # prove reads the zkey: the plain path, as pob_tpu's cli
+        if n <= 0 and not key.startswith("bitsum"):
             fail(f"kernel {key} was not launched by the cli's setup, witness and prove")
     run("verify", ["verify", "--vk", f["vk.json"], "--proof", f["proof.json"], "--public",
                    f["public.json"]])
@@ -844,8 +1166,8 @@ def cli_phase(dev) -> dict:
            "r1cs": {"constraints": r1["num_constraints"], "wires": r1["num_wires"],
                     "terms": terms}}
     log(f"cli: every command returned its expected code; the .wtns equals the card's witness, "
-        f"the .r1cs reads back to build_spend_cs's counts, the .sol to the vk; K1-K4 launched "
-        f"{counts}")
+        f"the .r1cs reads back to build_spend_cs's counts, the .sol to the vk; K1-K4 and K6 "
+        f"launched {counts}")
     return out
 
 
@@ -881,9 +1203,10 @@ def main():
     for src, kernels in ptxas.items():
         log(f"ptxas {src}: " + ", ".join(f"{k} {r} regs {ss}/{sl} B spill st/ld"
                                          for k, r, ss, sl in kernels))
-    spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
-              for k, _, ss, sl in ptxas[src] if ss or sl]
-    log("K2/K3/K4 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
+    spills = [f"{src} {k}" for src in ("ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu",
+                                        "bitsum_g1.cu", "bitsum_g2.cu")
+              for k, _, ss, sl in ptxas.get(src, ()) if ss or sl]  # older trees: no K5
+    log("K2-K6 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
     phase_done("1 build")
     if spills and "--k4" not in sys.argv[1:]:  # --k4 also times older trees, whose K4 spilled
         fail(f"ptxas spills registers in {', '.join(spills)}")
@@ -893,6 +1216,7 @@ def main():
         pk, _ = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
         W = assemble_witness(cs, spend_witness(*args))
         msm_breakdown(torch, msm, five_msms(pk, W, groth16.compute_h(pk.k, pk.mats, W)))
+        k5_breakdown(torch, pk, W)
         return
 
     rand_elems = make_rand(dev, 20260)
@@ -1089,14 +1413,21 @@ def main():
     _build.reset_launches()
     t0 = time.perf_counter()
     cs = build_spend_cs()
-    pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
+    st = {}
+    pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     after_setup = dict(_build.LAUNCHES)
     if pk.k != 18:
         fail(f"Spend domain is 2^{pk.k}, expected 2^18")
+    if pk.plan is None or not groth16.uses_plan(pk):
+        fail("setup did not give the key its witness-MSM plan, or prove_batch would not use it")
+    plan_mb = pk.plan.nbytes() / 1e6
     log(f"setup_s {setup_s:.3f} (k={pk.k}, {cs.num_constraints} constraints, "
-        f"{cs.num_wires} wires)")
+        f"{cs.num_wires} wires; " + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+        + f"); the plan: {plan_mb:.1f} MB, counts (n_bit, n_full) G1 "
+        f"{pk.plan.g1.counts.tolist()} G2 {pk.plan.g2.counts.tolist()}, M "
+        f"{pk.plan.g1.pts.shape[1]} / {pk.plan.g2.pts.shape[1]}")
 
     t0 = time.perf_counter()
     W = assemble_witness(cs, spend_witness(*args))
@@ -1142,8 +1473,28 @@ def main():
     for key in _build.LAUNCHES:
         if counts[key] <= 0:
             fail(f"kernel {key} was not launched on the main path")
-    log("slice " + json.dumps({"setup_s": setup_s, "witness_s": witness_s, **mean,
-                               "timed_proves": runs, "batch": batch,
+
+    # the plain path (POB_NO_PLAN=1) on the same witnesses and (r, s), after
+    # the counts: the same proofs, bit for bit
+    plain_runs = []
+    for _ in range(2):
+        tm = {}
+        before_plain = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        plain_proofs = plain_path(lambda: groth16.prove_batch(pk, W, rs=rs, timings=tm))
+        torch.cuda.synchronize()
+        tm["prove_s"] = time.perf_counter() - t0
+        plain_runs.append(tm)
+        log(f"plain path (POB_NO_PLAN=1) timed prove: h_s {tm['h_s']:.4f} msm_s "
+            f"{tm['msm_s']:.4f} prove_s {tm['prove_s']:.4f}")
+    per_plain_prove = {k: _build.LAUNCHES[k] - before_plain[k] for k in counts}
+    if plain_proofs != proofs:
+        fail(f"the {batch} planned proofs differ from the plain path's for the same (r, s)")
+    log(f"the {batch} planned proofs equal the plain path's bit for bit")
+    log("slice " + json.dumps({"setup_s": setup_s, "setup_parts_s": st, "plan_mb": plan_mb,
+                               "witness_s": witness_s, **mean, "timed_proves": runs,
+                               "plain_path_proves": plain_runs,
+                               "launches_per_plain_prove": per_plain_prove, "batch": batch,
                                "proofs_per_s": pps, "launches": counts}))
     phase_done("3 main path")
 
@@ -1153,18 +1504,21 @@ def main():
     # points against the plain version over the setup's scalars, in chunks.
     h = groth16.compute_h(pk.k, pk.mats, W)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")  # any host read in K3 raises
-    try:
-        groth16.msm_stage(pk, W, h)
-    except RuntimeError as e:
-        fail(f"the MSM stage synchronized with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    log("MSM stage of one prove (groth16.msm_stage) ran under "
-        "torch.cuda.set_sync_debug_mode('error'): no host read")
+    for path, stage in (("planned", lambda: groth16.msm_stage(pk, W, h)),
+                        ("plain", lambda: plain_path(lambda: groth16.msm_stage(pk, W, h)))):
+        torch.cuda.set_sync_debug_mode("error")  # any host read in K3 or K5 raises
+        try:
+            stage()
+        except RuntimeError as e:
+            fail(f"the {path} MSM stage synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"{path} MSM stage of one prove (groth16.msm_stage) ran under "
+            "torch.cuda.set_sync_debug_mode('error'): no host read")
     msms = five_msms(pk, W, h)
     log("msm_breakdown " + json.dumps(msm_breakdown(torch, msm, msms)))
+    log("k5_breakdown " + json.dumps(k5_breakdown(torch, pk, W)))
     chk = torch.tensor([0, batch - 1], device=dev)
     for name, group, pts, sc, bases in msms:
         (kern, km), (plain, pm) = (
@@ -1249,11 +1603,18 @@ def main():
                      "bound_ms_inv_per_entry": bms_inv, "library_ms": None,
                      "shape": f"32 x 256 {group.upper()} entries"})
 
+    chk_plan = torch.tensor([0, batch - 1], device=dev)
+    plan_rows, plan_info = plan_checks(pk, W, "Spend", chk=chk_plan)
+    rows += plan_rows
+    plan_cache = plan_cache_roundtrip(pk, cs, W, rs, proofs)
+    log("plan " + json.dumps({"info": plan_info, "cache": plan_cache, "mb": plan_mb}))
+
     for key, row in zip(("mont", "ntt", "msm"), rows):
         row["key"] = key
     for row in rows:
         row["launches"] = counts[row["key"]]
         row["launches_per_prove"] = per_prove[row["key"]]
+        row["launches_per_plain_prove"] = per_plain_prove[row["key"]]
 
     del pk, vk, W, h, msms, kern, plain, sc, ic_pts, args, xm, br, want, a, b, wide
     gc.collect()

@@ -27,11 +27,13 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "build", "pob_tpu_torch")
-SOURCES = ("mont.cu", "ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu")
+SOURCES = ("mont.cu", "ntt.cu", "msm_g1.cu", "msm_g2.cu", "fixed_base.cu", "bitsum_g1.cu",
+           "bitsum_g2.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont": 0, "ntt": 0, "msm": 0, "fixed_base": 0, "fixed_base_table": 0}
+LAUNCHES = {"mont": 0, "ntt": 0, "msm": 0, "fixed_base": 0, "fixed_base_table": 0, "chains": 0,
+            "bitsum_g1": 0, "bitsum_g2": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -50,7 +52,7 @@ _ARGTYPES = {
         "pob_msm_scatter": [_P, _I, _I, _P, _P, _P, _P],
         "pob_msm_bucket_sum": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
         "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P],
-        "pob_msm_shifted_bases": [_P, _P, _P, _L, _P, _P],
+        "pob_msm_shifted_bases": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
         "pob_msm_max_levels": [],
     } for src in ("msm_g1.cu", "msm_g2.cu")},
     "fixed_base.cu": {
@@ -58,6 +60,11 @@ _ARGTYPES = {
         "pob_fb_table": [_I, _P, _P, _P],
         "pob_fb_window": [_I, _P, _P, _L, _P, _P, _P, _P],
     },
+    **{src: {
+        "pob_bitsum_tile": [],
+        "pob_bitsum_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P],
+        "pob_bitsum_reduce": [_P, _I, _I, _P, _P, _P, _P],
+    } for src in ("bitsum_g1.cu", "bitsum_g2.cu")},
 }
 
 

@@ -1,7 +1,9 @@
 // K3: variable-base multi-scalar multiplication, batched over proofs:
 // out[b] = sum_i s[b, i] * P[i], with 8-bit digits. This header holds the
-// kernels; msm_g1.cu and msm_g2.cu compile it for one group each
-// (POB_MSM_T = Fe for G1 over Fq, Fq2 for G2), so the two build in parallel.
+// kernels, and K6 (shifted_bases_kernel, at the end: the doubling chains
+// that K3's bases and the witness-MSM plan are made of); msm_g1.cu and
+// msm_g2.cu compile it for one group each (POB_MSM_T = Fe for G1 over Fq,
+// Fq2 for G2), so the two build in parallel.
 //
 // Replaces pob_tpu/prover/msm.py::pippenger_msm with _combine_buckets
 // (msm.py:92,199) and the TPU-only one-hot form pippenger_msm_dense
@@ -294,21 +296,29 @@ reduce_kernel(const int32_t* __restrict__ parts, const int* __restrict__ PL, int
   if (c == 0) jac_store(oX, oY, oZ, blockIdx.x, v);
 }
 
-// Jacobian P_i (16-bit-limb layout) -> packed affine 2^(8w) P_i at
-// out[w m + i] for w < 32; infinity becomes (0, 0) because the inverse of
-// Z = 0 is 0.
+// K6: Jacobian P_i (16-bit-limb layout) -> packed affine 2^(dbl w) P_i for
+// w < windows, one thread per point: dbl doublings between windows, then Z
+// inverted once per window (infinity becomes (0, 0) because the inverse of
+// Z = 0 is 0). Row w m + i (window-major: K3's shifted bases, windows 32,
+// dbl 8) or i windows + w (wire-major: the plan's doubling chains, windows
+// 254, dbl 1); windows 1 is a plain conversion to affine. Replaces
+// pob_tpu/prover/groth16.py::_expand_doublings_kernel (a scan of doublings
+// over every full wire's point). Bound: the inversion per output (about
+// 360 Fq products) outweighs the doublings (7 / 16 products each); windows
+// and dbl are run-time arguments, so one body serves every caller.
 __global__ void __launch_bounds__(PT, MIN_BLOCKS)
 shifted_bases_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
-                     const int32_t* __restrict__ Z, long long m, int32_t* __restrict__ out) {
+                     const int32_t* __restrict__ Z, long long m, int windows, int dbl,
+                     int wire_major, int32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * PT + threadIdx.x;
   if (i >= m) return;
   Jac<T> p = jac_load<T>(X, Y, Z, i);
-  for (int w = 0; w < NWIN; w++) {
+  for (int w = 0; w < windows; w++) {
     if (w)
-      for (int k = 0; k < 8; k++) p = jac_double(p);
+      for (int k = 0; k < dbl; k++) p = jac_double(p);
     const T zi = cinv(p.z);
     const T zi2 = csqr(zi);
-    int32_t* o = out + (w * m + i) * 2 * PW;
+    int32_t* o = out + (wire_major ? i * windows + w : w * m + i) * 2 * PW;
     Coord<T>::storep(o, cmul(p.x, zi2));
     Coord<T>::storep(o + PW, cmul(p.y, cmul(zi2, zi)));
   }
@@ -371,8 +381,10 @@ extern "C" int pob_msm_reduce(const void* parts, const void* PL, int B, void* oX
 }
 
 extern "C" int pob_msm_shifted_bases(const void* X, const void* Y, const void* Z, long long m,
-                                     void* out, void* stream) {
+                                     int windows, int dbl, int wire_major, void* out,
+                                     void* stream) {
   shifted_bases_kernel<<<blocks_for(m, PT), PT, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, m, (int32_t*)out);
+      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, m, windows, dbl, wire_major,
+      (int32_t*)out);
   POB_CHECK();
 }

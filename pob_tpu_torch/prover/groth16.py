@@ -8,9 +8,13 @@ over the coset-Lagrange basis H_j = [x_j (tau^{2n} - 1) / (2 n delta
 evaluations of A.B - C directly.
 
 Per proof, everything runs on tensors of one device: the two sparse
-mat-vecs and the six transforms of the h stage (K1, K2), then five MSMs
-(K3). Setup computes its scalars on the host with python ints (batch
-inversions, no per-element pow) and forms every query point with K4.
+mat-vecs and the six transforms of the h stage (K1, K2), then five MSMs.
+On the planned path (pob_tpu's default: setup attaches the key's MsmPlan,
+and POB_NO_PLAN is not set) the four witness MSMs are two K5 sweeps over
+the plan's points and the h MSM is K3; on the plain path all five are K3.
+Setup computes its scalars on the host with python ints (batch
+inversions, no per-element pow), forms every query point with K4, and
+makes K3's shifted bases and the plan's doubling chains with K6.
 Verification is the host pairing check."""
 
 from __future__ import annotations
@@ -39,11 +43,12 @@ from ..field.ref import (
     pairing_product_is_one,
 )
 from ..r1cs.builder import ConstraintSystem
-from . import curve, msm, ntt
+from . import bitsum, curve, msm, ntt
 
 _R = (1 << 256) % FR_MOD
 _R2_FR = _R * _R % FR_MOD
 _R2_LIMBS = limb.int_to_limbs(_R2_FR)
+_R_FQ_LIMBS = limb.int_to_limbs((1 << 256) % FQ_MOD)
 
 
 def _next_pow2(n: int) -> int:
@@ -89,6 +94,8 @@ class ProvingKey:
     # on the card: msm.affine_bases of each query above, by name (K3's
     # mixed adds read these); None on the CPU, whose path adds Jacobian points
     bases: dict | None = None
+    # the planned witness MSMs (attach_msm_plan); None proves on the plain path
+    plan: MsmPlan | None = None
 
 
 MSM_QUERIES = (("a_query", "g1"), ("b1_query", "g1"), ("b2_query", "g2"), ("l_query", "g1"),
@@ -215,14 +222,18 @@ def setup_scalars(cs: ConstraintSystem, toxic):
 G1_QUERIES = ("a_query", "b1_query", "l_query", "h_query", "ic")  # one K4 call, this order
 
 
-def setup(cs: ConstraintSystem, rng=None, device=None, timings: dict | None = None):
+def setup(cs: ConstraintSystem, rng=None, plan: bool = True, device=None,
+          timings: dict | None = None):
     """Trusted setup (toxic waste sampled locally: fine for benchmarking and
     self-verification). Draws tau, alpha, beta, gamma, delta from `rng` in
     that order, computes the query scalars on the host and the query points
-    with K4 on `device`. Returns (ProvingKey, VerifyingKey). With a
+    with K4 on `device`. With `plan` (the default, as pob_tpu's setup has
+    it) the key gets its witness-MSM plan (attach_msm_plan); plan=False
+    proves on the plain path. Returns (ProvingKey, VerifyingKey). With a
     `timings` dict, the seconds of the host scalars, of the K4 calls (with
-    their host-to-card copies) and of the key's affine bases are stored
-    under "scalars_s", "k4_s" and "bases_s" (each synchronized)."""
+    their host-to-card copies), of the key's affine bases and of the plan
+    are stored under "scalars_s", "k4_s", "bases_s" and "plan_s" (each
+    synchronized)."""
     device = _build.resolve_device(device)
     rnd = rng or (lambda: secrets.randbelow(FR_MOD - 1) + 1)
     toxic = tuple(rnd() for _ in range(5))
@@ -248,11 +259,215 @@ def setup(cs: ConstraintSystem, rng=None, device=None, timings: dict | None = No
     t3 = time.perf_counter()
     attach_bases(pk)
     _sync(device)
+    t4 = time.perf_counter()
+    if plan:
+        attach_msm_plan(pk, cs)
+        _sync(device)
     if timings is not None:
-        timings.update(scalars_s=t1 - t0, k4_s=t2 - t1, bases_s=time.perf_counter() - t3)
+        timings.update(scalars_s=t1 - t0, k4_s=t2 - t1, bases_s=t4 - t3,
+                       plan_s=time.perf_counter() - t4)
     vk = VerifyingKey(alpha1=pk.alpha1, beta2=pk.beta2, gamma2=g2_mul(G2_GEN, gamma),
                       delta2=pk.delta2, ic=curve.to_affine_host_batch("fq", ic_q))
     return pk, vk
+
+
+# ---------------------------------------------------------------------------
+# width-classified witness MSMs: the plan (pob_tpu's default prove path)
+#
+# Most wires of these circuits hold bits (keccak state, bit decompositions,
+# one-hot selectors). The plan classifies every wire once per key: a bit
+# wire's point is added when its value is 1, and a full wire j is expanded
+# into its 254 doublings 2^k P_j, added where bit k of its value is set. So
+# each witness MSM becomes one conditional-add sweep (K5) over the plan's
+# points. Infinity query points (u_i(tau) = 0) are compacted away.
+# ---------------------------------------------------------------------------
+
+
+FULL_BITS = bitsum.FULL_BITS
+PLAN_GROUPS = (("g1", ("a_query", "b1_query", "l_query")), ("g2", ("b2_query",)))
+PLAN_PAD = 4096  # the plan's points per query are padded to a multiple of this
+
+
+def classify_bit_wires(cs: ConstraintSystem) -> np.ndarray:
+    """(num_wires,) bool: wires that hold a bit in any satisfying witness.
+    The union of the blocks declared width 1 at allocation and the wires
+    with a booleanity row w * w = w (one term in each of A, B and C, on the
+    same wire, coefficient index 0, which the constraint system's palette
+    reserves for 1)."""
+    declared = cs.bit_wires_declared()
+    ma, mb, mc, _ = cs.matrices_indexed()
+    nrows = cs.num_constraints
+
+    def single(rows, cols, cidx):
+        is_single = np.bincount(rows, minlength=nrows) == 1
+        wire = np.full(nrows, -1, np.int64)
+        ok = np.zeros(nrows, bool)
+        m = is_single[rows]
+        wire[rows[m]] = cols[m]
+        ok[rows[m]] = cidx[m] == 0
+        return is_single, wire, ok
+
+    sa, wa, ka = single(*ma)
+    sb, wb, kb = single(*mb)
+    sc, wc, kc = single(*mc)
+    rows_bool = sa & sb & sc & ka & kb & kc & (wa == wb) & (wb == wc)
+    bit = np.zeros(cs.num_wires, bool)
+    bit[wa[rows_bool]] = True
+    return bit | declared
+
+
+@dataclass
+class PlanGroup:
+    """One group's planned witness MSMs (queries stacked on axis 0), on the
+    key's device. pts (q, M, 16 | 32) int32: packed affine words (x then y,
+    Montgomery, (0, 0) for infinity), per query [bit points | (0, 0) up to
+    mb | the 254 doublings of each full wire's point, wire-major | (0, 0)
+    up to M]; bit_idx (q, mb) and full_idx (q, mf) int32: absolute wire
+    indices (0 past a query's count); counts (q, 2) int32: the true
+    (n_bit, n_full) of each query, so the padding costs nothing."""
+
+    pts: torch.Tensor
+    bit_idx: torch.Tensor
+    full_idx: torch.Tensor
+    counts: torch.Tensor
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.pts, self.bit_idx, self.full_idx, self.counts))
+
+
+@dataclass
+class MsmPlan:
+    """The witness-MSM plan of a key: g1 holds the a, b1 and l queries (in
+    that order), g2 the b2 query."""
+
+    g1: PlanGroup
+    g2: PlanGroup
+
+    def nbytes(self) -> int:
+        return self.g1.nbytes() + self.g2.nbytes()
+
+
+def _padded_to(n: int, mult: int) -> int:
+    n = max(n, 1)
+    mult = min(mult, 1 << (n - 1).bit_length())  # tiny circuits stay small
+    return -(-n // mult) * mult
+
+
+def _wire_offset(pk: ProvingKey, name: str) -> int:
+    return pk.num_public + 1 if name == "l_query" else 0
+
+
+def _plan_group(pk: ProvingKey, group: str, names, bit) -> PlanGroup:
+    """Build one group's plan on the key's device: the live bit points from
+    the key's affine bases (window 0 is P_i, packed affine: a gather, with
+    no transient copy beside a key that fills most of the card) or, on the
+    CPU, where the key has no bases, by K6 at (1, 0); the full points
+    gathered from the Jacobian queries and expanded by one K6 call at
+    (254, 1) for the whole group."""
+    dev = getattr(pk, names[0])[0].device
+    idx = {}
+    for name in names:
+        z = getattr(pk, name)[2]
+        live = (z.reshape(z.shape[0], -1) != 0).any(1).cpu().numpy()
+        wires = np.arange(len(live)) + _wire_offset(pk, name)
+        idx[name] = (np.nonzero(bit[wires] & live)[0], np.nonzero(~bit[wires] & live)[0])
+    mb = max(len(b) for b, _ in idx.values())
+    mf = max(max(len(f) for _, f in idx.values()), 1)
+    M = _padded_to(mb + mf * FULL_BITS, PLAN_PAD)
+
+    def gather(k):  # the group's Jacobian points of bit (k = 0) or full wires
+        pts = [tuple(c[torch.from_numpy(idx[n][k]).to(dev)] for c in getattr(pk, n))
+               for n in names]
+        return tuple(torch.cat(cs, 0) for cs in zip(*pts))
+
+    width = msm._bases_width(group)
+    pts = torch.zeros((len(names), M, width), dtype=torch.int32, device=dev)
+    bits = None if pk.bases is not None else msm.affine_bases(group, gather(0), 1, 0)
+    chains = msm.affine_bases(group, gather(1), FULL_BITS, 1, wire_major=True)
+    bit_idx = np.zeros((len(names), mb), np.int32)
+    full_idx = np.zeros((len(names), mf), np.int32)
+    counts = np.zeros((len(names), 2), np.int32)
+    ob = of = 0
+    for qi, name in enumerate(names):
+        b, f = idx[name]
+        pts[qi, :len(b)] = (pk.bases[name][torch.from_numpy(b).to(dev)] if bits is None
+                            else bits[ob:ob + len(b)])
+        pts[qi, mb:mb + len(f) * FULL_BITS] = chains[of * FULL_BITS:(of + len(f)) * FULL_BITS]
+        ob, of = ob + len(b), of + len(f)
+        off = _wire_offset(pk, name)
+        bit_idx[qi, :len(b)] = b + off
+        full_idx[qi, :len(f)] = f + off
+        counts[qi] = (len(b), len(f))
+    return PlanGroup(pts, *(torch.from_numpy(a).to(dev) for a in (bit_idx, full_idx, counts)))
+
+
+def _group_to_npz(group: str, g: PlanGroup, arrs: dict):
+    """pob_tpu's plan arrays of one group: Jacobian 16-bit limbs (uint32),
+    Z = 1 for finite points and pob_tpu's infinity (X = Y = R mod q in every
+    coordinate limb row, Z = 0); index arrays int32."""
+    q, M, width = g.pts.shape
+    x, y, z = msm.packed_to_jacobian(group, g.pts.reshape(q * M, width))
+    inf = (z.reshape(q * M, -1) == 0).all(1)
+    for ci, c in enumerate((x, y, z)):
+        if ci < 2:
+            c[inf] = torch.from_numpy(_R_FQ_LIMBS).to(c.device)
+        arrs[f"{group}_pts{ci}"] = c.reshape((q, M) + c.shape[1:]).cpu().numpy().astype(np.uint32)
+    arrs[f"{group}_bit_idx"] = g.bit_idx.cpu().numpy().astype(np.int32)
+    arrs[f"{group}_full_idx"] = g.full_idx.cpu().numpy().astype(np.int32)
+
+
+def _group_from_npz(group: str, d, device) -> PlanGroup:
+    """A group of a plan file written by pob_tpu's attach_msm_plan (or by
+    the port): the Jacobian points to packed affine by K6 at (1, 0), the
+    counts from the points (a query's live points come first in each of its
+    two blocks)."""
+    coords = [torch.from_numpy(np.asarray(d[f"{group}_pts{i}"]).astype(np.int32)).to(device)
+              for i in range(3)]
+    q, M = coords[0].shape[:2]
+    width = msm._bases_width(group)
+    flat = tuple(c.reshape((q * M,) + c.shape[2:]).contiguous() for c in coords)
+    pts = msm.affine_bases(group, flat, 1, 0).reshape(q, M, width)
+    bit_idx = torch.from_numpy(np.asarray(d[f"{group}_bit_idx"], np.int32)).to(device)
+    full_idx = torch.from_numpy(np.asarray(d[f"{group}_full_idx"], np.int32)).to(device)
+    mb, mf = bit_idx.shape[1], full_idx.shape[1]
+    live = (pts != 0).any(-1)
+    heads = live[:, mb:mb + mf * FULL_BITS].reshape(q, mf, FULL_BITS)[..., 0]
+    counts = torch.stack([live[:, :mb].sum(1), heads.sum(1)], 1).to(torch.int32)
+    return PlanGroup(pts, bit_idx, full_idx, counts)
+
+
+def attach_msm_plan(pk: ProvingKey, cs: ConstraintSystem,
+                    cache_path: str | None = None) -> ProvingKey:
+    """Build the key's witness-MSM plan (MsmPlan) on its device, from the
+    constraint system's bit classification (classify_bit_wires) and the
+    key's query points. With `cache_path`: if the file exists it is read
+    (the .npz of pob_tpu's attach_msm_plan, or of this function), else the
+    plan is built and written there in pob_tpu's format, which pob_tpu's
+    attach_msm_plan reads."""
+    dev = pk.a_query[0].device
+    if cache_path is not None and os.path.exists(cache_path):
+        with np.load(cache_path) as d:
+            pk.plan = MsmPlan(*(_group_from_npz(g, d, dev) for g, _ in PLAN_GROUPS))
+        return pk
+    bit = classify_bit_wires(cs)
+    pk.plan = MsmPlan(*(_plan_group(pk, g, names, bit) for g, names in PLAN_GROUPS))
+    if cache_path is not None:
+        arrs = {}
+        for g, _ in PLAN_GROUPS:
+            _group_to_npz(g, getattr(pk.plan, g), arrs)
+        tmp = cache_path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrs)
+        os.replace(tmp, cache_path)
+    return pk
+
+
+def uses_plan(pk: ProvingKey) -> bool:
+    """Whether prove_batch takes the planned path: the key has a plan and
+    POB_NO_PLAN is not 1 / true (pob_tpu's parse)."""
+    no_plan = os.environ.get("POB_NO_PLAN", "0").strip().lower()
+    return pk.plan is not None and no_plan not in ("1", "true")
 
 
 # ---------------------------------------------------------------------------
@@ -339,8 +554,10 @@ def batch_chunk(pk: ProvingKey, B: int, device) -> int:
 def prove_batch(pk: ProvingKey, W, rs=None, timings: dict | None = None):
     """Batched Groth16: W (B, num_wires, 16) canonical limbs (wire 0 = 1) ->
     list of B (A, B2, C) proofs (host affine points). rs: optional list of
-    (r, s) blinding pairs. Any B: the h stage, the MSMs and the host tail go
-    batch_chunk proofs at a time, and a proof does not depend on its chunk.
+    (r, s) blinding pairs. The MSMs take the planned path when the key has a
+    plan (uses_plan), with the same proofs as the plain path. Any B: the h
+    stage, the MSMs and the host tail go batch_chunk proofs at a time, and a
+    proof does not depend on its chunk.
     With a `timings` dict, the h stage and the MSMs are synchronized and
     their seconds over all chunks stored under "h_s" and "msm_s", and the
     chunk under "chunk"."""
@@ -381,14 +598,28 @@ def prove(pk: ProvingKey, witness_limbs, r: int | None = None, s: int | None = N
 
 def msm_stage(pk: ProvingKey, W, h):
     """The five MSMs of a batch on W's device, left there: (A, B1, B2, L, H)
-    sums, (B,) Jacobian each (L is None for a key without private wires).
-    On the card every one is a K3 call that reads nothing back to the host."""
+    sums, (B,) Jacobian each (L is None for a key without private wires on
+    the plain path). On the planned path (uses_plan) A, B1 and L come from
+    one K5 call on G1 and B2 from one on G2; H, and every MSM of the plain
+    path, is a K3 call. On the card nothing is read back to the host."""
     npub = pk.num_public
     scalars = {"a_query": W, "b1_query": W, "b2_query": W, "l_query": W[:, npub + 1:],
                "h_query": h}
-    return [msm.msm_batched(g, getattr(pk, q), scalars[q], pk.bases and pk.bases[q])
-            if q != "l_query" or int(pk.l_query[0].shape[0]) else None
-            for q, g in MSM_QUERIES]
+    planned = {}
+    if uses_plan(pk):
+        for group, names in PLAN_GROUPS:
+            g = getattr(pk.plan, group)
+            sums = bitsum.bitsum_msm(group, g.pts, g.bit_idx, g.full_idx, g.counts, W)
+            planned.update({q: tuple(c[i] for c in sums) for i, q in enumerate(names)})
+
+    def one(q, group):
+        if q in planned:
+            return planned[q]
+        if q == "l_query" and not int(pk.l_query[0].shape[0]):
+            return None
+        return msm.msm_batched(group, getattr(pk, q), scalars[q], pk.bases and pk.bases[q])
+
+    return [one(q, g) for q, g in MSM_QUERIES]
 
 
 def finish_proof(pk: ProvingKey, sums, r: int | None = None, s: int | None = None):
@@ -520,9 +751,6 @@ def load_pk(path: str, device=None):
     """Read a key saved by pob_tpu.prover.groth16.save_pk (numpy only)."""
     with np.load(path) as d:
         return pk_from_arrays({k: d[k] for k in d.files}, device)
-
-
-_R_FQ_LIMBS = limb.int_to_limbs((1 << 256) % FQ_MOD)
 
 
 def _limbs_to_device(arr, device):

@@ -1,5 +1,6 @@
-"""Multi-scalar multiplication on tensors: variable-base Pippenger (K3) and
-fixed-base scalar multiplication for the trusted setup (K4).
+"""Multi-scalar multiplication on tensors: variable-base Pippenger (K3),
+fixed-base scalar multiplication for the trusted setup (K4), and the
+shifted affine points of K3's bases and of the witness-MSM plan (K6).
 
 Each kernel has its plain PyTorch version here; the wrappers take the plain
 version for CPU tensors only and launch the kernel for CUDA tensors.
@@ -10,6 +11,10 @@ version for CPU tensors only and launch the kernel for CUDA tensors.
   call. Plain version ``msm_plain``: buckets per (proof, window, digit)
   summed by sort and pairwise adds (``segment_sum``), then per bit
   position and a binary-tree Horner.
+- K6 ``affine_bases`` (``csrc/msm.cuh``'s shifted-bases kernel): packed
+  affine 2^(dbl w) P_i for w < windows, window- or wire-major: K3's bases
+  (32, 8), the witness-MSM plan's doubling chains (254, 1), a plain
+  conversion to affine (1, 0). Plain version ``affine_bases_plain``.
 - K4 ``fixed_base_msm`` (``csrc/fixed_base.cu``): k_i G for every scalar,
   by mixed adds from the window table T[w][v] = v 2^(8w) G, kept as packed
   affine points (``window_table``, built on the card from the doublings
@@ -281,16 +286,21 @@ def _coord_inv_plain(group: str, a):
                         limb.sub_plain(limb.FQ, torch.zeros_like(c1), c1)], -2)
 
 
-def affine_bases_plain(group: str, points):
-    """Plain version of K3's shifted-bases kernel: (m,) Jacobian points P_i
-    -> (32 m, 16) (G1) or (32 m, 32) (G2) int32, row w m + i the packed words
-    of x then y of 2^(8w) P_i, affine, Montgomery form; infinity gives
-    (0, 0), since the inverse of Z = 0 is 0."""
+def affine_bases_plain(group: str, points, windows: int = N_WINDOWS, dbl: int = WINDOW_BITS,
+                       wire_major: bool = False):
+    """Plain version of K6 (the shifted-bases kernel): (m,) Jacobian points
+    P_i -> (windows m, 16) (G1) or (windows m, 32) (G2) int32, the packed
+    words of x then y of 2^(dbl w) P_i, affine, Montgomery form, at row
+    w m + i (window-major; K3's bases: 32 windows of 8 doublings) or
+    i windows + w (wire-major; the plan's chains: 254 windows of 1);
+    infinity gives (0, 0), since the inverse of Z = 0 is 0."""
     ops = curve.ops_for(group)
     shifted = [points]
-    for _ in range(N_WINDOWS - 1):
-        shifted.append(curve.times_pow2(ops, shifted[-1], WINDOW_BITS))
-    return _packed_affine(group, tuple(torch.cat(cs, 0) for cs in zip(*shifted)))
+    for _ in range(windows - 1):
+        shifted.append(curve.times_pow2(ops, shifted[-1], dbl))
+    axis = 1 if wire_major else 0
+    return _packed_affine(group, tuple(torch.stack(cs, axis).flatten(0, 1)
+                                       for cs in zip(*shifted)))
 
 
 def _packed_affine(group: str, points):
@@ -302,23 +312,47 @@ def _packed_affine(group: str, points):
     zi = _coord_inv_plain(group, z)
     zi2 = ops.sqr(zi)
     ax, ay = ops.mul(x, zi2), ops.mul(y, ops.mul(zi2, zi))
-    n = x.shape[0]
-    return pack_words(torch.cat([ax.reshape(n, -1), ay.reshape(n, -1)], -1))
+    return pack_words(torch.cat([ax.flatten(1), ay.flatten(1)], -1))
 
 
-def affine_bases(group: str, points):
-    """The table K3 adds from: 2^(8w) P_i for every window w, packed affine
-    (see affine_bases_plain); made once per key (``ProvingKey.bases``)."""
+def affine_bases(group: str, points, windows: int = N_WINDOWS, dbl: int = WINDOW_BITS,
+                 wire_major: bool = False):
+    """K6: affine_bases_plain's table on the card, one thread per point.
+    With the defaults, the table K3 adds from (2^(8w) P_i for every window
+    w; made once per key, ``ProvingKey.bases``); with (254, 1, wire_major)
+    the doubling chains of the witness-MSM plan; with (1, 0) a conversion
+    to packed affine."""
     if not points[0].is_cuda:
-        return affine_bases_plain(group, points)
+        return affine_bases_plain(group, points, windows, dbl, wire_major)
     points = tuple(c.contiguous() for c in points)
     m = _check_points(group, points)
-    out = torch.empty((N_WINDOWS * m, _bases_width(group)), dtype=torch.int32,
+    out = torch.empty((windows * m, _bases_width(group)), dtype=torch.int32,
                       device=points[0].device)
     if m:
         _launch(None, "shifted_bases", _build.lib(_MSM_SRC[group]).pob_msm_shifted_bases,
-                *_ptrs(points), m, out.data_ptr(), _build.stream_ptr(out))
+                *_ptrs(points), m, windows, dbl, int(wire_major), out.data_ptr(),
+                _build.stream_ptr(out), key="chains")
     return out
+
+
+def unpack_words(words):
+    """Inverse of pack_words: (..., n) int32 words -> (..., 2n) 16-bit limbs."""
+    w = words.long()
+    return torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], -1).flatten(-2).to(torch.int32)
+
+
+def packed_to_jacobian(group: str, packed):
+    """(n, 16) (G1) or (n, 32) (G2) packed affine words -> (n,) Jacobian
+    points with Z = 1 (Montgomery); (0, 0) gives the port's infinity (one,
+    one, 0)."""
+    ops = curve.ops_for(group)
+    n = packed.shape[0]
+    limbs = unpack_words(packed).reshape((n, 2) + ops.coord_shape)
+    inf = (packed == 0).all(-1)
+    one = ops.one((n,), packed.device)
+    pick = inf.reshape((n,) + (1,) * len(ops.coord_shape))
+    x, y = (torch.where(pick, one, limbs[:, k]) for k in range(2))
+    return x, y, torch.where(pick, torch.zeros_like(one), one)
 
 
 def _bases_width(group: str) -> int:
@@ -337,8 +371,9 @@ def msm_batched(group: str, points, scalars, bases=None, timing=None):
 
 
 def _launch(timing, label, fn, *args, key="msm"):
-    """Launch one kernel (K3's, or K4's with its `key` in LAUNCHES): count
-    it, time it into `timing` if that is a list, raise on a launch error."""
+    """Launch one kernel (K3's, or K4's, K5's or K6's with its `key` in
+    LAUNCHES): count it, time it into `timing` if that is a list, raise on a
+    launch error."""
     if timing is not None:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()

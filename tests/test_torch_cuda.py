@@ -293,3 +293,101 @@ def test_prove_batch_in_chunks_on_card(dev, monkeypatch):
     monkeypatch.setattr(groth16, "batch_chunk", lambda pk, B, device: 2)
     tm = {}
     assert groth16.prove_batch(pk, W, rs=rs, timings=tm) == whole and tm["chunk"] == 2
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("windows,dbl,wire_major", [(32, 8, False), (254, 1, True), (1, 0, False)])
+def test_k6_matches_plain(dev, group, windows, dbl, wire_major):
+    """K6 (the shifted-bases kernel) at K3's bases (32, 8), the plan's
+    chains (254, 1, wire-major) and a plain conversion (1, 0): the same
+    words as its plain version, on points with Z != 1 and an infinity."""
+    ops = curve.ops_for(group)
+    pts = msm.fixed_base_msm(group, _elems((24,), 40).to(dev))
+    pts = curve.point_add(ops, pts, tuple(c.roll(1, 0) for c in pts))  # Z != 1
+    pts[2][5] = 0
+    got = msm.affine_bases(group, pts, windows, dbl, wire_major)
+    assert torch.equal(got, msm.affine_bases_plain(group, pts, windows, dbl, wire_major))
+
+
+def _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, seed, fill=None):
+    """A plan group on the card over random points k G: query i has nbs[i]
+    bit points and nfs[i] full wires (doubling chains by K6), padded to mb,
+    mf and M, its wires drawn from [1, nw); and B witnesses: random (bit
+    wires 0 or 1, full wires random), or every limb `fill`."""
+    from pob_tpu_torch.prover import bitsum
+
+    rng = np.random.default_rng(seed)
+    nw = 4 * (mb + mf) + 8
+    width = msm._bases_width(group)
+    pts = torch.zeros((q, M, width), dtype=torch.int32, device=dev)
+    bit_idx = torch.zeros((q, mb), dtype=torch.int32)
+    full_idx = torch.zeros((q, mf), dtype=torch.int32)
+    for i in range(q):
+        wires = rng.permutation(np.arange(1, nw))[:nbs[i] + nfs[i]]
+        bit_idx[i, :nbs[i]] = torch.from_numpy(wires[:nbs[i]].astype(np.int32))
+        full_idx[i, :nfs[i]] = torch.from_numpy(wires[nbs[i]:].astype(np.int32))
+        p = msm.fixed_base_msm(group, _elems((nbs[i] + nfs[i],), seed + i).to(dev))
+        pts[i, :nbs[i]] = msm.affine_bases(group, tuple(c[:nbs[i]] for c in p), 1, 0)
+        pts[i, mb:mb + nfs[i] * bitsum.FULL_BITS] = msm.affine_bases(
+            group, tuple(c[nbs[i]:] for c in p), bitsum.FULL_BITS, 1, True)
+    if fill is None:
+        W = _elems((B, nw), seed + 99)
+        W[..., :, 1:][:, bit_idx.flatten().long()] = 0
+        W[:, bit_idx.flatten().long(), 0] &= 1
+    else:
+        W = torch.full((B, nw, 16), fill, dtype=torch.int32)
+    counts = torch.tensor(list(zip(nbs, nfs)), dtype=torch.int32)
+    return pts, bit_idx.to(dev), full_idx.to(dev), counts.to(dev), W.to(dev)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("B", [1, 16])
+def test_k5_matches_plain(dev, group, B):
+    """K5 against its plain version: M below one tile and M not a multiple
+    of the tile, both blocks padded (queries of different counts, wire 0 in
+    the padding, whose value 1 must not count), random, all-zero and
+    all-one witnesses."""
+    from pob_tpu_torch.prover import bitsum
+
+    q = 3 if group == "g1" else 1
+    for nbs, nfs, mb, mf, M in ((250, 5, 300, 7, 300 + 7 * 254 + 37),
+                                (8000, 20, 8100, 20, 3 * 4096 + 1000)):
+        nbs, nfs = [nbs - 17 * i for i in range(q)], [nfs - i for i in range(q)]
+        assert M % bitsum_tile(group) and mb + mf * bitsum.FULL_BITS <= M
+        for fill in (None, 0, 0xFFFF):
+            args = _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, 50 + M, fill)
+            before = _build.LAUNCHES[f"bitsum_{group}"]
+            got = bitsum.bitsum_msm(group, *args)
+            assert _build.LAUNCHES[f"bitsum_{group}"] == before + 2
+            want = bitsum.bitsum_plain(group, *args)
+            for g, w in zip(got, want):
+                assert tuple(g.shape) == (q, B) + curve.ops_for(group).coord_shape
+            assert _same(group, tuple(c.flatten(0, 1) for c in got),
+                         tuple(c.flatten(0, 1) for c in want)), (M, fill)
+
+
+def bitsum_tile(group):
+    from pob_tpu_torch.prover import bitsum
+
+    return _build.lib(bitsum._SRC[group]).pob_bitsum_tile()
+
+
+def test_planned_toy_slice_on_card(dev, monkeypatch):
+    """The toy key's plan made on the card (K6 chains, bit points from the
+    affine bases) equals the CPU's (K6 at (1, 0) for the bit points), and
+    the card's planned proofs equal its plain ones (POB_NO_PLAN=1)."""
+    from pob_tpu_torch.prover import groth16
+
+    cs, pk, vk, W, pubs = _toy_keyed(dev)
+    assert pk.plan is not None
+    cpk, _ = groth16.setup(cs, rng=iter(range(101, 200, 7)).__next__, device="cpu")
+    for group in ("g1", "g2"):
+        a, b = getattr(pk.plan, group), getattr(cpk.plan, group)
+        for x, y in ((a.pts, b.pts), (a.bit_idx, b.bit_idx), (a.full_idx, b.full_idx),
+                     (a.counts, b.counts)):
+            assert torch.equal(x.cpu(), y), group
+    rs = [(5 + i, 6 + i) for i in range(5)]
+    planned = groth16.prove_batch(pk, W, rs=rs)
+    monkeypatch.setenv("POB_NO_PLAN", "1")
+    assert groth16.prove_batch(pk, W, rs=rs) == planned
+    assert all(groth16.verify(vk, p, x) for p, x in zip(planned, pubs))
