@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # from the repo root
     python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 and K5 breakdown
     python3 chip_smoke.py --k4             # phase 1, then K4's times alone
+    python3 chip_smoke.py --k5-k6          # phase 1, then K5's and K6's times alone
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
@@ -42,9 +43,11 @@ Phases (any failure exits non-zero; there is no CPU run):
      port's count). K5 per group on the planned MSMs at B = 16 (proofs 0
      and 15 against the plain version, every position), K6's doubling
      chains of every full point against the plain version and the plan's,
-     the plan's bit points against the plain affine conversion, each
-     kernel timed beside its bound; the plan written to a pob_tpu-format
-     .npz and read back (the same plan, the same proofs).
+     the plan's bit points against the plain affine conversion, K6's
+     (32, 8) bases of the key (K3's shifted bases) in all 32 windows at
+     4,096 positions per query, infinite points of the a-query included,
+     each kernel timed beside its bound; the plan written to a
+     pob_tpu-format .npz and read back (the same plan, the same proofs).
   5. the ProofOfBurn path at bench.py's PoB size (TEST_CONFIG: 3,966,130
      constraints, domain 2^22, batch 4), with the Spend objects freed:
      build_pob_cs, setup on the card (host scalars, K4, the key's affine
@@ -69,16 +72,17 @@ Phases (any failure exits non-zero; there is no CPU run):
      call), and the K4 call over all of them timed; K5 per group at B = 4
      on a copy of the plan whose points are kept at 65,536 positions per
      query, the full call timed; K6 on 512 full points of each query, timed
-     over all of them. Then a batch of
+     over all of them, and on the key's (32, 8) bases at 512 positions per
+     query, timed by the setup's own calls (CUDA events). Then a batch of
      16 (more than K3's int32 limit of 15 at m = 2^22 and more than free
      memory holds) in one prove_batch, which splits it into chunks: the
      first 4 proofs must equal the batch-4 proofs (same witnesses, same
      r, s), all 16 verify, one tampered public is rejected. Last, the key
      through a snarkjs .zkey: write_zkey (ZKEY_SAMPLE points of each point
      section against the plain msm._packed_affine bytes), the key freed,
-     load_zkey (its vk equal to the setup's), the batch-4 witnesses proved
-     again with the same (r, s): the same proofs, which verify. One
-     `pob {...}` JSON line.
+     load_zkey (its vk equal to the setup's; its K6 calls timed), the
+     batch-4 witnesses proved again with the same (r, s): the same proofs,
+     which verify. One `pob {...}` JSON line.
   6. (run after phase 4, before phase 5) the command line at full width on
      Spend, in-process through pob_tpu_torch.cli.main: setup (zkey, r1cs,
      vk), witness (wtns), prove (from the zkey), verify (0, and 1 with a
@@ -99,8 +103,18 @@ this script in the root of an older tree times that tree's K4 the same way:
 per group, the table's build as the caller sees it (cache cleared, host
 work included, median of 3) and the setup's call (median of 3), after a
 check of the edge scalars against the plain version; one JSON line. In
-this mode a ptxas spill is printed and does not fail the run: the first
-port's G2 table kernel spilled."""
+this mode and in --k5-k6 a ptxas spill is printed and does not fail the
+run: the first port's G2 table kernel spilled.
+
+--k5-k6 times K5 and K6 through entry points every tree of the port since
+the planned path has (groth16.setup with timings, msm.affine_bases,
+bitsum.bitsum_msm, groth16.prove_batch, write_zkey, load_zkey), so a copy
+of this script in the root of an older tree times that tree the same way:
+on Spend (2^18, B = 16) and PoB (TEST_CONFIG, B = 4) the setup and its K6
+calls (CUDA events) and peak memory, K6's chains per group, K5 per group
+with its launches, msm_s of the planned and the plain path (the same
+proofs), and for PoB the key through a .zkey (load_zkey's time, peak and
+K6 calls); one `k5k6 {label}: {...}` line per circuit."""
 
 from __future__ import annotations
 
@@ -490,6 +504,110 @@ def plan_checks(pk, W, label, chk=None, keep_pos=None, keep_full=None, groups=("
     return rows, info
 
 
+@contextlib.contextmanager
+def k6_calls(msm, rec: list):
+    """Within the block, every msm.affine_bases call (K6, as groth16's
+    setup, attach_msm_plan and load_zkey make them) is timed with CUDA
+    events: rec gets one (group, m, windows, dbl, start, end) per call."""
+    import torch
+
+    real = msm.affine_bases
+
+    def timed_k6(group, points, windows=msm.N_WINDOWS, dbl=msm.WINDOW_BITS, wire_major=False):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(group, points, windows, dbl, wire_major)
+        ev[1].record()
+        rec.append((group, int(points[0].shape[0]), windows, dbl, *ev))
+        return out
+
+    msm.affine_bases = timed_k6
+    try:
+        yield
+    finally:
+        msm.affine_bases = real
+
+
+def k6_setup_ms(rec) -> list:
+    """The K6 calls k6_calls recorded, synchronized: [{group, m, windows,
+    dbl, ms}] in call order."""
+    import torch
+
+    torch.cuda.synchronize()
+    return [{"group": g, "m": m, "windows": w, "dbl": d, "ms": a.elapsed_time(b)}
+            for g, m, w, d, a, b in rec]
+
+
+def k6_bases_ms(pk, calls) -> dict:
+    """{query: ms} of the key's K6 calls at (32, 8), which attach_bases
+    makes in MSM_QUERIES order."""
+    from pob_tpu_torch.prover.groth16 import MSM_QUERIES
+
+    calls = [c for c in calls if (c["windows"], c["dbl"]) == (32, 8)]
+    if [(c["group"], c["m"]) for c in calls] != [(g, getattr(pk, q)[0].shape[0])
+                                                for q, g in MSM_QUERIES]:
+        fail(f"the key's K6 calls at (32, 8) are not one per query: {calls}")
+    return {q: c["ms"] for (q, _), c in zip(MSM_QUERIES, calls)}
+
+
+def bases_checks(pk, label, sample, call_ms=None):
+    """K6 at K3's (32, 8) on the key's own bases: pk.bases of each query
+    held against affine_bases_plain (tolerance 0) in all 32 windows at
+    `sample` positions spread over the query, the last included, and at up
+    to 16 infinite points of the a-query. The kernel's time per query is
+    call_ms[query] (the key's own call, CUDA events) or, without it, timed
+    here (3 calls); per group the sum beside k6_bound over all its points.
+    Returns one row per group."""
+    import torch
+
+    from pob_tpu_torch.prover import msm
+    from pob_tpu_torch.prover.groth16 import MSM_QUERIES
+
+    acc = {}
+    for q, group in MSM_QUERIES:
+        pts = getattr(pk, q)
+        m = pts[0].shape[0]
+        pos = torch.from_numpy(spread_positions(m, min(sample, m))).to(pts[0].device)
+        n_inf = 0
+        if q == "a_query":
+            inf = (pts[2].reshape(m, -1) == 0).all(1).nonzero().flatten()[:16]
+            n_inf = int(inf.numel())
+            pos = torch.unique(torch.cat([pos, inf]))
+        sub = tuple(c[pos] for c in pts)
+        plain, pm = once_ms(lambda: msm.affine_bases_plain(group, sub))
+        got = pk.bases[q].view(msm.N_WINDOWS, m, -1)[:, pos].reshape(plain.shape)
+        exact(f"K6 {label} {q} bases (32, 8) at {pos.numel()} positions", got, plain)
+        ms = call_ms[q] if call_ms else cuda_ms(lambda: msm.affine_bases(group, pts), 3)
+        bms, _ = k6_bound(group, m, msm.N_WINDOWS, msm.WINDOW_BITS)
+        log(f"K6 {label} {q} bases (32, 8; {m} points) exact in all 32 windows at "
+            f"{pos.numel()} positions ({n_inf} infinite): kernel_ms {ms:.3f} plain_ms {pm:.3f} "
+            f"bound_ms {bms:.4f}, share {bms / ms:.4f}")
+        a = acc.setdefault(group, {"queries": [], "n": 0, "ms": 0.0, "plain_ms": 0.0,
+                                   "held": 0, "inf": 0})
+        a["queries"].append(q.split("_")[0])
+        a["n"] += m
+        a["ms"] += ms
+        a["plain_ms"] += pm
+        a["held"] += int(pos.numel())
+        a["inf"] += n_inf
+        del plain, got, sub
+    rows = []
+    for group, a in acc.items():
+        bms, by = k6_bound(group, a["n"], msm.N_WINDOWS, msm.WINDOW_BITS)
+        G = group.upper()
+        rows.append({"name": f"K6 bases (32, 8) ({label}: {G}, the key's "
+                             f"{'+'.join(a['queries'])} queries)", "key": "chains",
+                     "route": "cuda", "source": "pob_tpu_torch/csrc/msm.cuh",
+                     "replaces": "pob_tpu/prover/groth16.py:674", "max_abs_err": 0,
+                     "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": bms, "bound_by": by,
+                     "bound_share": bms / a["ms"], "library_ms": None,
+                     "shape": f"{a['n']} {G} points x 32 windows of 8 doublings",
+                     "plain_shape": f"{a['held']} of them ({a['inf']} infinite), all 32 "
+                                    f"windows",
+                     "timed": "the key's own calls" if call_ms else "3 calls per query"})
+    return rows
+
+
 def plan_cache_roundtrip(pk, cs, W, rs, proofs) -> dict:
     """The key's plan written to a pob_tpu-format .npz (attach_msm_plan
     with a cache_path that does not exist yet) and read back: the plan read
@@ -538,7 +656,8 @@ POB_BATCH = 4  # bench.py's BENCH_POB_BATCH
 POB_SAMPLE = 1 << 16  # positions kept in the sampled K3 and K4 checks
 POB_K4_CHUNK = 1 << 14  # sampled K4 scalars per plain call (its G2 sums' memory)
 POB_K2_MORE = (20, 21)  # K2 also at these k, one random row each (2 and 3 passes)
-POB_K6_SAMPLE = 512  # full points of each query in the sampled K6 check
+POB_K6_SAMPLE = 512  # points of each query in the sampled K6 checks (chains, bases)
+SPEND_K6_SAMPLE = 4096  # points of each query in the Spend K6 bases check
 
 
 def pob_batch(cfg, dev, batch: int):
@@ -671,12 +790,16 @@ def pob_phase(dev, card):
     log(f"PoB build_pob_cs(TEST_CONFIG): {cs.num_constraints} constraints, {cs.num_wires} wires, "
         f"nnz {nnz}, palette {len(pal)}, {build_cs_s:.3f} s")
 
-    st, kept = {}, []
+    st, kept, k6_rec = {}, [], []
     t0 = time.perf_counter()
-    with keep_setup_scalars(groth16, kept):  # K4's check below reuses them (~60 s of host ints)
+    # K4's check below reuses the scalars (~60 s of host ints); K6's calls are timed
+    with keep_setup_scalars(groth16, kept), k6_calls(msm, k6_rec):
         pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    k6_setup = k6_setup_ms(k6_rec)
+    del k6_rec
+    bases_ms = k6_bases_ms(pk, k6_setup)
     k_pob = pk.k
     if k_pob != 22:
         fail(f"PoB domain is 2^{k_pob}, expected 2^22")
@@ -694,6 +817,9 @@ def pob_phase(dev, card):
         f"(counts G1 {pk.plan.g1.counts.tolist()} G2 {pk.plan.g2.counts.tolist()}, M "
         f"{pk.plan.g1.pts.shape[1]} / {pk.plan.g2.pts.shape[1]})")
     peak("setup")
+    log("PoB setup's K6 calls: " + ", ".join(
+        f"({c['windows']}, {c['dbl']}) {c['m']} {c['group'].upper()} {c['ms']:.1f} ms"
+        for c in k6_setup))
     after_setup = dict(_build.LAUNCHES)
 
     torch.cuda.reset_peak_memory_stats()
@@ -882,6 +1008,7 @@ def pob_phase(dev, card):
         prow += r_
         pinfo.update(i_)
     rows += prow
+    rows += bases_checks(pk, "PoB", POB_K6_SAMPLE, call_ms=bases_ms)
     W = W.cpu()  # back on the card for the zkey round trip; off it for K4's plain sums
 
     # K4 on the setup's own scalars (kept from its call), at
@@ -935,7 +1062,13 @@ def pob_phase(dev, card):
     del pk, pts
     gc.collect()
     torch.cuda.empty_cache()
-    zk.update(pob_zkey_load(path, vk, W.to(dev), proofs, rs, pubs))
+    k6_rec = []
+    with k6_calls(msm, k6_rec):
+        zk.update(pob_zkey_load(path, vk, W.to(dev), proofs, rs, pubs))
+    zk["k6_calls"] = k6_setup_ms(k6_rec)
+    log(f"PoB load_zkey's K6 calls (32, 8): " + ", ".join(
+        f"{c['m']} {c['group'].upper()} {c['ms']:.1f} ms" for c in zk["k6_calls"]
+        if c["windows"] == msm.N_WINDOWS))
     for row in rows:
         key = row.pop("key")
         row["launches"] = counts[key]
@@ -948,6 +1081,7 @@ def pob_phase(dev, card):
            "timed_proves": runs, "proofs_per_s": pps, "witness_parts_s": wit_parts,
            "matvec_s": matvec_s, "peak_gb": gb, "batch16": big, "zkey": zk,
            "plan_gb": plan_gb, "plan": pinfo, "plain_path": tm_plain,
+           "k6_setup_calls": k6_setup,
            "launches_per_plain_prove": per_plain,
            "key_gb": {"bases": key_gb, "jacobian": jac_gb, "mats": mats_gb},
            "launches": counts, "launches_per_prove": per_prove}
@@ -1171,6 +1305,108 @@ def cli_phase(dev) -> dict:
     return out
 
 
+def k5_k6_key(label, cs, W, rs, pubs, zkey=False) -> dict:
+    """--k5-k6 on one circuit: setup (its K6 calls timed with CUDA events,
+    peak device memory), K6 at (32, 8) per query as setup calls it, K6's
+    chains per group (3 calls), K5 per group (3 calls; one more with its
+    per-launch times), msm_s of two timed proves on the planned path and
+    on the plain one after a warm-up of each (the same proofs); with zkey,
+    the key through a .zkey: load_zkey's time, peak and K6 calls."""
+    import torch
+
+    from pob_tpu_torch.prover import bitsum, groth16, msm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, rec = {}, []
+    with k6_calls(msm, rec):
+        (pk, vk), setup_s = timed(lambda: groth16.setup(cs, rng=iter(TOXIC).__next__,
+                                                        device=W.device, timings=st))
+    out = {"sweep_waves": getattr(bitsum, "SWEEP_WAVES", None), "setup_s": setup_s,
+           "setup_parts_s": st,
+           "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "k6_setup_calls": k6_setup_ms(rec)}
+    bases = {}
+    for q, ms in k6_bases_ms(pk, out["k6_setup_calls"]).items():
+        g = dict(groth16.MSM_QUERIES)[q]
+        b = bases.setdefault(g, {"n": 0, "ms": 0.0})
+        b["n"] += int(getattr(pk, q)[0].shape[0])
+        b["ms"] += ms
+    for g, b in bases.items():
+        b["bound_ms"], _ = k6_bound(g, b["n"], msm.N_WINDOWS, msm.WINDOW_BITS)
+    out["k6_bases"] = bases
+    out["k6_chains"], out["k5"] = {}, {}
+    for group, names, g in plan_groups(pk):
+        full = plan_full_points(pk, group, names, g)
+        n = int(full[0].shape[0])
+        ms = cuda_ms(lambda: msm.affine_bases(group, full, bitsum.FULL_BITS, 1, True), 3)
+        out["k6_chains"][group] = {"n": n, "ms": ms,
+                                   "bound_ms": k6_bound(group, n, bitsum.FULL_BITS, 1)[0]}
+        del full
+        ms = cuda_ms(lambda: k5_call(group, g, W), 3)
+        timing = []
+        k5_call(group, g, W, timing)
+        torch.cuda.synchronize()
+        bms, _, nset = k5_bound(group, g, W)
+        out["k5"][group] = {"q": int(g.pts.shape[0]), "M": int(g.pts.shape[1]),
+                            "B": int(W.shape[0]), "set_bits": nset, "ms": ms, "bound_ms": bms,
+                            "launches": len(timing),
+                            "launch_ms": {lab: a.elapsed_time(b) for lab, a, b in timing}}
+    for path, run in (("planned", lambda fn: fn()), ("plain", plain_path)):
+        proofs = run(lambda: groth16.prove_batch(pk, W, rs=rs))  # warm-up
+        msm_s = []
+        for _ in range(2):
+            tm = {}
+            run(lambda: groth16.prove_batch(pk, W, rs=rs, timings=tm))
+            msm_s.append(tm["msm_s"])
+        out[f"msm_s_{path}"] = msm_s
+        if path == "planned":
+            planned = proofs
+        elif proofs != planned:
+            fail(f"--k5-k6 {label}: the planned proofs differ from the plain path's")
+    if zkey:
+        path, zk = pob_zkey_write(cs, pk, vk)
+        del pk, g
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = []
+        with k6_calls(msm, rec):
+            zk.update(pob_zkey_load(path, vk, W, planned, rs, pubs))
+        zk["k6_calls"] = k6_setup_ms(rec)
+        out["zkey"] = zk
+    log(f"k5k6 {label}: " + json.dumps(out))
+    return out
+
+
+def k5_k6_mode(dev, card) -> dict:
+    """--k5-k6: K5's and K6's times through entry points every tree of the
+    port since the planned path has (groth16.setup with timings,
+    msm.affine_bases, bitsum.bitsum_msm, groth16.prove_batch, write_zkey,
+    load_zkey), so a copy of this script in the root of an older tree
+    times that tree's kernels the same way: Spend (2^18, B = 16), then PoB
+    (TEST_CONFIG, 2^22, B = 4) with its key through a .zkey."""
+    import torch
+
+    from pob_tpu_torch.circuits.proof_of_burn import TEST_CONFIG
+    from pob_tpu_torch.r1cs.pob_circuit import build_pob_cs, pob_r1cs_witness
+    from pob_tpu_torch.r1cs.spend_circuit import assemble_witness, build_spend_cs, spend_witness
+
+    out = {"card": card}
+    cs = build_spend_cs()
+    args, pubs = spend_batch(dev, 16)
+    W = assemble_witness(cs, spend_witness(*args))
+    out["spend"] = k5_k6_key("spend", cs, W, [(1000 + i, 2000 + i) for i in range(16)], pubs)
+    del cs, args, W
+    gc.collect()
+    cs = build_pob_cs(TEST_CONFIG)
+    kw, pubs = pob_batch(TEST_CONFIG, dev, POB_BATCH)
+    W = assemble_witness(cs, pob_r1cs_witness(TEST_CONFIG, **kw))
+    del kw
+    out["pob"] = k5_k6_key("pob", cs, W, [(3000 + i, 4000 + i) for i in range(POB_BATCH)],
+                           pubs, zkey=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1208,8 +1444,12 @@ def main():
               for k, _, ss, sl in ptxas.get(src, ()) if ss or sl]  # older trees: no K5
     log("K2-K6 spill bytes: " + (f"in {', '.join(spills)}" if spills else "0 in every kernel"))
     phase_done("1 build")
-    if spills and "--k4" not in sys.argv[1:]:  # --k4 also times older trees, whose K4 spilled
+    timing_mode = "--k4" in sys.argv[1:] or "--k5-k6" in sys.argv[1:]
+    if spills and not timing_mode:  # these also time older trees, whose K4 spilled
         fail(f"ptxas spills registers in {', '.join(spills)}")
+    if "--k5-k6" in sys.argv[1:]:
+        k5_k6_mode(dev, card)
+        return
     if "--msm-breakdown" in sys.argv[1:]:
         args, _ = spend_batch(dev, 16)
         cs = build_spend_cs()
@@ -1606,6 +1846,7 @@ def main():
     chk_plan = torch.tensor([0, batch - 1], device=dev)
     plan_rows, plan_info = plan_checks(pk, W, "Spend", chk=chk_plan)
     rows += plan_rows
+    rows += bases_checks(pk, "Spend", SPEND_K6_SAMPLE)
     plan_cache = plan_cache_roundtrip(pk, cs, W, rs, proofs)
     log("plan " + json.dumps({"info": plan_info, "cache": plan_cache, "mb": plan_mb}))
 

@@ -52,7 +52,7 @@ _ARGTYPES = {
         "pob_msm_scatter": [_P, _I, _I, _P, _P, _P, _P],
         "pob_msm_bucket_sum": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
         "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P],
-        "pob_msm_shifted_bases": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
+        "pob_msm_shifted_bases": [_P, _P, _P, _L, _I, _I, _I, _L, _L, _P, _P, _P],
         "pob_msm_max_levels": [],
     } for src in ("msm_g1.cu", "msm_g2.cu")},
     "fixed_base.cu": {
@@ -61,8 +61,8 @@ _ARGTYPES = {
         "pob_fb_window": [_I, _P, _P, _L, _P, _P, _P, _P],
     },
     **{src: {
-        "pob_bitsum_tile": [],
-        "pob_bitsum_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P],
+        "pob_bitsum_warps_per_sm": [],
+        "pob_bitsum_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P, _P],
         "pob_bitsum_reduce": [_P, _I, _I, _P, _P, _P, _P],
     } for src in ("bitsum_g1.cu", "bitsum_g2.cu")},
 }

@@ -297,30 +297,69 @@ reduce_kernel(const int32_t* __restrict__ parts, const int* __restrict__ PL, int
 }
 
 // K6: Jacobian P_i (16-bit-limb layout) -> packed affine 2^(dbl w) P_i for
-// w < windows, one thread per point: dbl doublings between windows, then Z
-// inverted once per window (infinity becomes (0, 0) because the inverse of
-// Z = 0 is 0). Row w m + i (window-major: K3's shifted bases, windows 32,
-// dbl 8) or i windows + w (wire-major: the plan's doubling chains, windows
-// 254, dbl 1); windows 1 is a plain conversion to affine. Replaces
+// w < windows, one thread per point, dbl doublings between windows; row
+// w m + i (window-major: K3's shifted bases, windows 32, dbl 8) or
+// i windows + w (wire-major: the plan's doubling chains, windows 254, dbl
+// 1); windows 1 is a plain conversion to affine. Replaces
 // pob_tpu/prover/groth16.py::_expand_doublings_kernel (a scan of doublings
-// over every full wire's point). Bound: the inversion per output (about
-// 360 Fq products) outweighs the doublings (7 / 16 products each); windows
-// and dbl are run-time arguments, so one body serves every caller.
+// over every full wire's point). windows and dbl are run-time arguments, so
+// one body serves every caller.
+//
+// Bound: integer multiplies. Design: one inversion per point, not per
+// output (Montgomery's trick over the point's windows), and the doublings
+// once. With c_w = Z_0 ... Z_w over the nonzero Z (c_{-1} = 1):
+//  1. the doublings; row w gets U = X_w c_{w-1}^2, V = Y_w c_{w-1}^3 ((0, 0)
+//     for Z_w = 0), the scratch zs gets Z_w; c lives in shared memory, so it
+//     is not held in registers across the doublings (G2's registers);
+//  2. one inversion, inv = c_{windows-1}^-1;
+//  3. backwards: inv = c_w^-1, so x = U inv^2 = X_w / Z_w^2 and y = V inv^3
+//     over row w, then inv <- inv Z_w (a zero Z_w is skipped: it leaves its
+//     row (0, 0) and its neighbours alone).
+// G1 at (32, 8): about 2,400 Fq products per point where an inversion per
+// output took about 14,100. The wrapper gives a launch n points, i0 on,
+// with n windows coordinates of scratch (bounded whatever m is). The
+// chains (254, 1) stay a serial walk per point: latency-bound where there
+// are few points.
 __global__ void __launch_bounds__(PT, MIN_BLOCKS)
 shifted_bases_kernel(const int32_t* __restrict__ X, const int32_t* __restrict__ Y,
                      const int32_t* __restrict__ Z, long long m, int windows, int dbl,
-                     int wire_major, int32_t* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * PT + threadIdx.x;
-  if (i >= m) return;
+                     int wire_major, long long i0, long long n, int32_t* __restrict__ out,
+                     int32_t* __restrict__ zs) {
+  __shared__ uint4 cs4[PT * PW / 4];
+  int32_t* cs = reinterpret_cast<int32_t*>(cs4) + threadIdx.x * PW;
+  const long long j = (long long)blockIdx.x * PT + threadIdx.x;
+  if (j >= n) return;
+  const long long i = i0 + j;
+  const long long step = (wire_major ? 1 : m) * 2 * PW;  // words between windows' rows
+  int32_t* row0 = out + (wire_major ? i * windows : i) * 2 * PW;
   Jac<T> p = jac_load<T>(X, Y, Z, i);
+  Coord<T>::storep(cs, Coord<T>::one());
   for (int w = 0; w < windows; w++) {
     if (w)
       for (int k = 0; k < dbl; k++) p = jac_double(p);
-    const T zi = cinv(p.z);
-    const T zi2 = csqr(zi);
-    int32_t* o = out + (wire_major ? i * windows + w : w * m + i) * 2 * PW;
-    Coord<T>::storep(o, cmul(p.x, zi2));
-    Coord<T>::storep(o + PW, cmul(p.y, cmul(zi2, zi)));
+    asm volatile("" ::: "memory");  // c is read from cs after the doublings
+    int32_t* o = row0 + w * step;
+    Coord<T>::storep(zs + (w * n + j) * PW, p.z);
+    if (cis_zero(p.z)) {
+      Coord<T>::storep(o, Coord<T>::zero());
+      Coord<T>::storep(o + PW, Coord<T>::zero());
+      continue;
+    }
+    const T c = Coord<T>::loadp(cs);
+    const T c2 = csqr(c);
+    Coord<T>::storep(o, cmul(p.x, c2));
+    Coord<T>::storep(o + PW, cmul(p.y, cmul(c2, c)));
+    Coord<T>::storep(cs, cmul(c, p.z));
+  }
+  T inv = cinv(Coord<T>::loadp(cs));
+  for (int w = windows - 1; w >= 0; w--) {
+    const T z = Coord<T>::loadp(zs + (w * n + j) * PW);
+    if (cis_zero(z)) continue;
+    int32_t* o = row0 + w * step;
+    const T i2 = csqr(inv);
+    Coord<T>::storep(o, cmul(Coord<T>::loadp(o), i2));
+    Coord<T>::storep(o + PW, cmul(Coord<T>::loadp(o + PW), cmul(i2, inv)));
+    inv = cmul(inv, z);
   }
 }
 
@@ -381,10 +420,10 @@ extern "C" int pob_msm_reduce(const void* parts, const void* PL, int B, void* oX
 }
 
 extern "C" int pob_msm_shifted_bases(const void* X, const void* Y, const void* Z, long long m,
-                                     int windows, int dbl, int wire_major, void* out,
-                                     void* stream) {
-  shifted_bases_kernel<<<blocks_for(m, PT), PT, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, m, windows, dbl, wire_major,
-      (int32_t*)out);
+                                     int windows, int dbl, int wire_major, long long i0,
+                                     long long n, void* out, void* zs, void* stream) {
+  shifted_bases_kernel<<<blocks_for(n, PT), PT, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)X, (const int32_t*)Y, (const int32_t*)Z, m, windows, dbl, wire_major, i0,
+      n, (int32_t*)out, (int32_t*)zs);
   POB_CHECK();
 }

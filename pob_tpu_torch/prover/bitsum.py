@@ -24,6 +24,8 @@ from ..field import limb
 from . import curve, msm
 
 FULL_BITS = 254  # witness values are field elements < 2^254
+SWEEP_WAVES = 4  # K5's sweep grid: about this many waves of the card's resident warps
+MIN_RUN = 1024  # fewest positions a sweep warp takes
 
 _SRC = {"g1": "bitsum_g1.cu", "g2": "bitsum_g2.cu"}
 
@@ -72,10 +74,20 @@ def bitsum_msm(group: str, pts, bit_idx, full_idx, counts, W, timing=None):
     return bitsum_cuda(group, pts, bit_idx, full_idx, counts, W, timing)
 
 
+def sweep_run(q: int, B: int, M: int, warps_per_sm: int, sms: int) -> int:
+    """Positions per warp of K5's sweep (a multiple of 32): the q B M
+    positions spread over about SWEEP_WAVES waves of the card's resident
+    warps, and at least MIN_RUN, so that a warp's closing 5-level tree of
+    full adds stays a small share of its run."""
+    per_warp = -(-q * B * M // (SWEEP_WAVES * warps_per_sm * sms))
+    return max(MIN_RUN, -(-per_warp // 32) * 32)
+
+
 def bitsum_cuda(group: str, pts, bit_idx, full_idx, counts, W, timing=None):
-    """K5's two launches: the sweep (grid (tile, proof, query), a packed
-    Jacobian partial per tile) and the reduce (a block per (query, proof)).
-    Every buffer is sized from B and M; nothing is read back to the host."""
+    """K5's two launches: the sweep (a warp per run of sweep_run positions
+    of one (query, proof), a packed Jacobian partial per run) and the reduce
+    (a block per (query, proof)). Every buffer is sized from B, M and the
+    card; nothing is read back to the host."""
     W = W.contiguous()
     _build.check_cuda(pts, bit_idx, full_idx, counts, W)
     width = msm._bases_width(group)
@@ -86,8 +98,9 @@ def bitsum_cuda(group: str, pts, bit_idx, full_idx, counts, W, timing=None):
             bit_idx.shape[0] != q or full_idx.shape[0] != q:
         raise ValueError("bit_idx, full_idx and counts must have the plan's q rows")
     mb, mf = bit_idx.shape[1], full_idx.shape[1]
-    if mb + mf * FULL_BITS > M:
-        raise ValueError(f"M = {M} is below mb + 254 mf = {mb + mf * FULL_BITS}")
+    if mb + mf * FULL_BITS > M or M >= 1 << 31:
+        raise ValueError(f"M = {M} must be at least mb + 254 mf = {mb + mf * FULL_BITS} "
+                         "and below 2^31")
     if W.dim() != 3 or W.shape[2] != limb.L:
         raise ValueError(f"W must be (B, nw, 16), got {tuple(W.shape)}")
     B, nw = W.shape[:2]
@@ -95,13 +108,15 @@ def bitsum_cuda(group: str, pts, bit_idx, full_idx, counts, W, timing=None):
     if q * B == 0:
         return tuple(c.reshape((q, B) + c.shape[1:]) for c in out)
     lib = _build.lib(_SRC[group])
-    tiles = -(-M // lib.pob_bitsum_tile())
-    part = torch.empty((q, B, tiles, 3 * width // 2), dtype=torch.int32, device=W.device)
+    run = sweep_run(q, B, M, lib.pob_bitsum_warps_per_sm(),
+                    torch.cuda.get_device_properties(W.device).multi_processor_count)
+    runs = -(-M // run)
+    part = torch.empty((q, B, runs, 3 * width // 2), dtype=torch.int32, device=W.device)
     stream = _build.stream_ptr(W)
     key = f"bitsum_{group}"
     msm._launch(timing, "sweep", lib.pob_bitsum_sweep, pts.data_ptr(), bit_idx.data_ptr(),
                 full_idx.data_ptr(), counts.data_ptr(), W.data_ptr(), B, nw, q, M, mb, mf,
-                part.data_ptr(), stream, key=key)
-    msm._launch(timing, "reduce", lib.pob_bitsum_reduce, part.data_ptr(), q * B, tiles,
+                run, part.data_ptr(), stream, key=key)
+    msm._launch(timing, "reduce", lib.pob_bitsum_reduce, part.data_ptr(), q * B, runs,
                 *msm._ptrs(out), stream, key=key)
     return tuple(c.reshape((q, B) + c.shape[1:]) for c in out)

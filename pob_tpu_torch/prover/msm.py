@@ -315,23 +315,33 @@ def _packed_affine(group: str, points):
     return pack_words(torch.cat([ax.flatten(1), ay.flatten(1)], -1))
 
 
+K6_SCRATCH_BYTES = 3 << 28  # most bytes of Z scratch one K6 launch takes (768 MiB)
+
+
 def affine_bases(group: str, points, windows: int = N_WINDOWS, dbl: int = WINDOW_BITS,
                  wire_major: bool = False):
-    """K6: affine_bases_plain's table on the card, one thread per point.
+    """K6: affine_bases_plain's table on the card, one thread and one
+    inversion per point (Montgomery's trick over its windows; csrc/msm.cuh).
     With the defaults, the table K3 adds from (2^(8w) P_i for every window
     w; made once per key, ``ProvingKey.bases``); with (254, 1, wire_major)
     the doubling chains of the witness-MSM plan; with (1, 0) a conversion
-    to packed affine."""
+    to packed affine. The points go as many to a launch as a scratch of
+    K6_SCRATCH_BYTES holds the Z of all their windows."""
     if not points[0].is_cuda:
         return affine_bases_plain(group, points, windows, dbl, wire_major)
     points = tuple(c.contiguous() for c in points)
     m = _check_points(group, points)
-    out = torch.empty((windows * m, _bases_width(group)), dtype=torch.int32,
-                      device=points[0].device)
-    if m:
-        _launch(None, "shifted_bases", _build.lib(_MSM_SRC[group]).pob_msm_shifted_bases,
-                *_ptrs(points), m, windows, dbl, int(wire_major), out.data_ptr(),
-                _build.stream_ptr(out), key="chains")
+    width = _bases_width(group)
+    dev = points[0].device
+    out = torch.empty((windows * m, width), dtype=torch.int32, device=dev)
+    if m * windows:
+        chunk = min(m, max(1, K6_SCRATCH_BYTES // (windows * width * 2)))
+        zs = torch.empty((chunk * windows, width // 2), dtype=torch.int32, device=dev)
+        fn = _build.lib(_MSM_SRC[group]).pob_msm_shifted_bases
+        for i0 in range(0, m, chunk):
+            _launch(None, "shifted_bases", fn, *_ptrs(points), m, windows, dbl, int(wire_major),
+                    i0, min(chunk, m - i0), out.data_ptr(), zs.data_ptr(),
+                    _build.stream_ptr(out), key="chains")
     return out
 
 

@@ -297,23 +297,35 @@ def test_prove_batch_in_chunks_on_card(dev, monkeypatch):
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("windows,dbl,wire_major", [(32, 8, False), (254, 1, True), (1, 0, False)])
-def test_k6_matches_plain(dev, group, windows, dbl, wire_major):
+def test_k6_matches_plain(dev, group, windows, dbl, wire_major, monkeypatch):
     """K6 (the shifted-bases kernel) at K3's bases (32, 8), the plan's
     chains (254, 1, wire-major) and a plain conversion (1, 0): the same
-    words as its plain version, on points with Z != 1 and an infinity."""
+    words as its plain version, on points with Z != 1 and an infinity; and
+    over several blocks, with a whole warp of infinite inputs and an
+    infinite input between finite ones, in one launch and in launches of
+    100 points (a scratch that small)."""
     ops = curve.ops_for(group)
-    pts = msm.fixed_base_msm(group, _elems((24,), 40).to(dev))
-    pts = curve.point_add(ops, pts, tuple(c.roll(1, 0) for c in pts))  # Z != 1
-    pts[2][5] = 0
-    got = msm.affine_bases(group, pts, windows, dbl, wire_major)
-    assert torch.equal(got, msm.affine_bases_plain(group, pts, windows, dbl, wire_major))
+    per_point = windows * msm._bases_width(group) * 2  # scratch bytes
+    for m, infinite in ((24, [5]), (300, list(range(64, 96)) + [150])):
+        pts = msm.fixed_base_msm(group, _elems((m,), 40 + m).to(dev))
+        pts = curve.point_add(ops, pts, tuple(c.roll(1, 0) for c in pts))  # Z != 1
+        pts[2][infinite] = 0
+        want = msm.affine_bases_plain(group, pts, windows, dbl, wire_major)
+        for scratch in (msm.K6_SCRATCH_BYTES, 100 * per_point):
+            monkeypatch.setattr(msm, "K6_SCRATCH_BYTES", scratch)
+            before = _build.LAUNCHES["chains"]
+            got = msm.affine_bases(group, pts, windows, dbl, wire_major)
+            assert _build.LAUNCHES["chains"] == before + -(-m // min(m, scratch // per_point))
+            assert torch.equal(got, want), (m, scratch)
 
 
 def _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, seed, fill=None):
     """A plan group on the card over random points k G: query i has nbs[i]
     bit points and nfs[i] full wires (doubling chains by K6), padded to mb,
     mf and M, its wires drawn from [1, nw); and B witnesses: random (bit
-    wires 0 or 1, full wires random), or every limb `fill`."""
+    wires 0 or 1, full wires random), every limb `fill`, "sparse" (each bit
+    set with probability 1/64) or "one" (a single set bit in proof 0, a bit
+    wire of query 0, and one in proof B - 1, a full wire of query q - 1)."""
     from pob_tpu_torch.prover import bitsum
 
     rng = np.random.default_rng(seed)
@@ -330,10 +342,18 @@ def _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, seed, fill=None):
         pts[i, :nbs[i]] = msm.affine_bases(group, tuple(c[:nbs[i]] for c in p), 1, 0)
         pts[i, mb:mb + nfs[i] * bitsum.FULL_BITS] = msm.affine_bases(
             group, tuple(c[nbs[i]:] for c in p), bitsum.FULL_BITS, 1, True)
-    if fill is None:
+    if fill is None or fill == "sparse":
         W = _elems((B, nw), seed + 99)
+        if fill == "sparse":
+            bits = torch.from_numpy(rng.random((B, nw, 16, 16)) < 1 / 64)
+            W = (bits.to(torch.int32) << torch.arange(16, dtype=torch.int32)).sum(-1)
+            W = W.to(torch.int32)
         W[..., :, 1:][:, bit_idx.flatten().long()] = 0
         W[:, bit_idx.flatten().long(), 0] &= 1
+    elif fill == "one":
+        W = torch.zeros((B, nw, 16), dtype=torch.int32)
+        W[0, bit_idx[0, 7], 0] = 1
+        W[B - 1, full_idx[q - 1, 1], 200 >> 4] = 1 << (200 & 15)
     else:
         W = torch.full((B, nw, 16), fill, dtype=torch.int32)
     counts = torch.tensor(list(zip(nbs, nfs)), dtype=torch.int32)
@@ -343,18 +363,18 @@ def _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, seed, fill=None):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("B", [1, 16])
 def test_k5_matches_plain(dev, group, B):
-    """K5 against its plain version: M below one tile and M not a multiple
-    of the tile, both blocks padded (queries of different counts, wire 0 in
-    the padding, whose value 1 must not count), random, all-zero and
-    all-one witnesses."""
+    """K5 against its plain version: M below one run and M not a multiple
+    of the run, both blocks padded (queries of different counts, wire 0 in
+    the padding, whose value 1 must not count), random, all-zero, all-one,
+    sparse (1 bit in 64) witnesses and a single set bit."""
     from pob_tpu_torch.prover import bitsum
 
     q = 3 if group == "g1" else 1
     for nbs, nfs, mb, mf, M in ((250, 5, 300, 7, 300 + 7 * 254 + 37),
                                 (8000, 20, 8100, 20, 3 * 4096 + 1000)):
         nbs, nfs = [nbs - 17 * i for i in range(q)], [nfs - i for i in range(q)]
-        assert M % bitsum_tile(group) and mb + mf * bitsum.FULL_BITS <= M
-        for fill in (None, 0, 0xFFFF):
+        assert M % bitsum_run(group, q, B, M) and mb + mf * bitsum.FULL_BITS <= M
+        for fill in (None, 0, 0xFFFF, "sparse", "one"):
             args = _k5_case(dev, group, q, nbs, nfs, mb, mf, M, B, 50 + M, fill)
             before = _build.LAUNCHES[f"bitsum_{group}"]
             got = bitsum.bitsum_msm(group, *args)
@@ -366,10 +386,12 @@ def test_k5_matches_plain(dev, group, B):
                          tuple(c.flatten(0, 1) for c in want)), (M, fill)
 
 
-def bitsum_tile(group):
+def bitsum_run(group, q, B, M):
+    """Positions per warp of K5's sweep for this call on this card."""
     from pob_tpu_torch.prover import bitsum
 
-    return _build.lib(bitsum._SRC[group]).pob_bitsum_tile()
+    return bitsum.sweep_run(q, B, M, _build.lib(bitsum._SRC[group]).pob_bitsum_warps_per_sm(),
+                            torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def test_planned_toy_slice_on_card(dev, monkeypatch):
