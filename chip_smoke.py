@@ -5,6 +5,7 @@
     python3 chip_smoke.py --msm-breakdown  # phase 1, setup, witness, K3 and K5 breakdown
     python3 chip_smoke.py --k4             # phase 1, then K4's times alone
     python3 chip_smoke.py --k5-k6          # phase 1, then K5's and K6's times alone
+    python3 chip_smoke.py --dist           # phase 1, then the multi-device phase (7) alone
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
@@ -92,10 +93,22 @@ Phases (any failure exits non-zero; there is no CPU run):
      zeroed before, K1-K4 and K6 must each have run (prove reads the zkey,
      so it takes the plain path and K5 does not run). One `cli {...}` JSON
      line.
+  7. (run after phase 6, before phase 5, on phase 3's Spend key, witnesses,
+     h and proofs) the multi-device layer on virtual meshes of the card,
+     data_mesh(D, device=card) for D = 1, 2, 4: the four-step NTT and its
+     inverse against the local K2 transform, shard_pk, the sharded h-MSM
+     against the local K3 call, compute_h_sharded against compute_h under
+     the h permutation, prove_sharded of witnesses 0 and 1 against
+     prove_batch's proofs (verified, a tampered public rejected); the
+     pipelined prover on [card] * 3 and [card] * 6 (an MSM group of 4
+     shards) over 4 Spend requests, against prove_batch's proofs; and
+     graft_entry_torch.dryrun_multichip(4, card). Launch counters zeroed
+     before, K1, K2, K3 and K6 must each have run. One `dist {...}` JSON
+     line (see dist_phase).
 Each phase's end is printed with the script's elapsed time (`phases_s`).
 Then the kernel table as one JSON line (Spend rows with their launches on
-the main path, the cli phase and the PoB path, then the PoB rows), the card,
-and last, the device line.
+the main path, the cli phase, the dist phase and the PoB path, then the PoB
+rows), the card, and last, the device line.
 
 --k4 times K4 through entry points every tree of the port has
 (msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
@@ -176,10 +189,13 @@ def msm_bounds(group: str, B: int, m: int, nz: int):
 TOXIC = tuple(range(12345, 12345 + 5 * 7919, 7919))  # tau, alpha, beta, gamma, delta
 
 
-def spend_batch(dev, batch: int):
-    """The main path's Spend inputs, as bench.py derives them from the fixture:
-    (witness arguments on the card, expected public commitments)."""
-    from pob_tpu_torch.field import limb
+SPEND_KEYS = ("burn_key", "balance", "withdrawn", "extra_commitment")
+
+
+def spend_cases(batch: int):
+    """The main path's Spend requests as bench.py derives them from the
+    fixture (extra_commitment = base + i): ((burn_key, balance, withdrawn,
+    extra) field elements per proof, expected public commitments)."""
     from pob_tpu_torch.field.ref import FR_MOD
     from pob_tpu_torch.harness.inputs import load_spend_input, spend_expected_commitment
 
@@ -187,9 +203,19 @@ def spend_batch(dev, batch: int):
                        "spend_input.json")
     base = load_spend_input(fix)
     cases = [dict(base, extra_commitment=base["extra_commitment"] + i) for i in range(batch)]
-    args = [limb.to_device(limb.ints_to_limbs([c[k] % FR_MOD for c in cases]), dev)
-            for k in ("burn_key", "balance", "withdrawn", "extra_commitment")]
-    return args, [spend_expected_commitment(c) for c in cases]
+    return ([tuple(c[k] % FR_MOD for k in SPEND_KEYS) for c in cases],
+            [spend_expected_commitment(c) for c in cases])
+
+
+def spend_batch(dev, batch: int):
+    """The main path's Spend inputs (spend_cases): (witness arguments on the
+    card, expected public commitments)."""
+    from pob_tpu_torch.field import limb
+
+    reqs, pubs = spend_cases(batch)
+    args = [limb.to_device(limb.ints_to_limbs([r[j] for r in reqs]), dev)
+            for j in range(len(SPEND_KEYS))]
+    return args, pubs
 
 
 def five_msms(pk, W, h):
@@ -1407,6 +1433,183 @@ def k5_k6_mode(dev, card) -> dict:
     return out
 
 
+DIST_MESHES = (1, 2, 4)  # shards of the virtual meshes of the card in the dist phase
+DIST_REQUESTS = 4  # Spend requests per prove_stream
+
+
+def h_body_bound(k: int):
+    """The sharded h stage's least work after the mat-vecs (pob_tpu's
+    _h_body, compute_h's tail): six transforms of k n / 2 butterfly products
+    and n twiddle products each, the two 1/N_i scales of each inverse
+    four-step (2 n each), the coset scales (3 n), C = A.B, A.B and the REDC
+    out of Montgomery form (n each): 72 n at k = 18; bytes: A.w and B.w in,
+    h out."""
+    n = 1 << k
+    ops = 6 * (k * n // 2 + n) + 3 * 2 * n + 3 * n + 3 * n
+    return bound(3 * n * 64, ops)
+
+
+def four_step_bound(k: int, inverse: bool):
+    """One four-step transform of 2^k elements: k n / 2 butterfly products,
+    n twiddle products (and 2 n for the small inverse transforms' scales);
+    bytes: the vector in and out."""
+    n = 1 << k
+    return bound(2 * n * 64, k * n // 2 + n + (2 * n if inverse else 0))
+
+
+def dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs) -> dict:
+    """The multi-device layer at the main path's size (Spend, 2^18) on
+    virtual meshes of the card, data_mesh(D, device=card) for D = 1, 2, 4:
+    the four-step NTT and its inverse at (k1, k2) = _split_k(18, D) on a
+    random Montgomery vector against the local K2 transform; shard_pk (the
+    h permutation, each shard's K3 bases by K6); msm_sharded of the h query
+    over proof 0's h (permuted as the sharded key's points) against the
+    local K3 h-MSM; compute_h_sharded against compute_h[perm]; prove_sharded
+    of witnesses 0 and 1 at their (r, s) against prove_batch's proofs; then
+    Groth16Pipeline on [card] * 3 and [card] * 6 (an MSM group of 4 shards)
+    over DIST_REQUESTS Spend requests from the fixture with the same (r, s),
+    against prove_batch's proofs; then dryrun_multichip(4, card). Every
+    check exact. Launch counters zeroed before, K1, K2, K3 and K6 must each
+    have run. Times: CUDA events for the transforms, the MSMs and the h
+    stage (each beside the same work on one device), the host clock
+    (synchronized) for shard_pk, the proves and the streams; the copies of
+    the collectives alone at D = 4; peak device memory."""
+    import numpy as np
+    import torch
+
+    import graft_entry_torch
+    from pob_tpu_torch import _build
+    from pob_tpu_torch.dist.mesh import all_to_all, data_mesh, gather, shard
+    from pob_tpu_torch.dist.msm_sharded import msm_sharded
+    from pob_tpu_torch.dist.ntt_sharded import (_outer_twiddle, four_step_local, ntt_sharded,
+                                                table_shards, untranspose_host)
+    from pob_tpu_torch.dist.pipeline import Groth16Pipeline, spend_witness_stage
+    from pob_tpu_torch.dist.prove_sharded import (_split_k, compute_h_sharded, h_permutation,
+                                                  prove_sharded, shard_pk)
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import curve, groth16, msm, ntt
+
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    k, n = pk.k, 1 << pk.k
+    out = {"card": card, "k": k, "meshes": {}}
+    x = make_rand(dev, 20261)((n,))
+    local = {False: ntt.ntt(x, k), True: ntt.intt(x, k)}
+    local_host = {inv: v.cpu().numpy() for inv, v in local.items()}
+    h0 = h[0].contiguous()
+    h_local = groth16.compute_h(k, pk.mats, W[:1])[0]
+    want_h = curve.to_affine_host("fq", tuple(c[0] for c in msm.msm_batched(
+        "g1", pk.h_query, h0[None], pk.bases["h_query"])))
+    nz = int((msm.scalar_digits(h0) != 0).sum())
+    out["local"] = {
+        "ntt_ms": cuda_ms(lambda: ntt.ntt(x, k), 5),
+        "intt_ms": cuda_ms(lambda: ntt.intt(x, k), 5),
+        "h_msm_ms": cuda_ms(lambda: msm.msm_batched("g1", pk.h_query, h0[None],
+                                                    pk.bases["h_query"]), 3),
+        "compute_h_ms": cuda_ms(lambda: groth16.compute_h(k, pk.mats, W[:1]), 3),
+        "h_nonzero_digits": nz}
+    for label, fn in (("prove_s", lambda: groth16.prove(pk, W[0], *rs[0])),
+                      ("prove_plain_s", lambda: plain_path(lambda: groth16.prove(pk, W[0],
+                                                                                 *rs[0])))):
+        fn()
+        p, out["local"][label] = timed(fn)
+        if p != proofs[0]:
+            fail(f"dist: prove ({label}) differs from prove_batch's proof 0")
+    b_ntt, b_intt = four_step_bound(k, False), four_step_bound(k, True)
+    b_msm = msm_bounds("g1", 1, n, nz)[0]
+    b_h = h_body_bound(k)
+    out["bounds_ms"] = {"four_step_ntt": b_ntt, "four_step_intt": b_intt, "h_msm": b_msm,
+                        "h_body": b_h, "local_ntt": bound(2 * n * 64 + n // 2 * 64, k * n // 2),
+                        "shard_pk_bases": [k6_bound(g, int(getattr(pk, q)[0].shape[0]), 32, 8)
+                                           for q, g in groth16.MSM_QUERIES]}
+
+    for D in DIST_MESHES:
+        mesh = data_mesh(D, device=dev)
+        k1, k2 = _split_k(k, D)
+        rec = {"k1": k1, "k2": k2}
+        for inverse in (False, True):
+            c = ntt_sharded(mesh, x, k1, k2, inverse=inverse)
+            if not np.array_equal(untranspose_host(c), local_host[inverse]):
+                fail(f"dist D={D}: four-step {'inverse ' if inverse else ''}NTT differs from "
+                     "the local K2 transform")
+        # the four-step as the sharded prove runs it: tables already on the
+        # shards, the input's column shards copied in the timed call
+        for key, inverse in (("ntt_ms", False), ("intt_ms", True)):
+            tws = table_shards(mesh, _outer_twiddle(k1, k2, inverse), 1)
+            rec[key] = cuda_ms(lambda: four_step_local(
+                mesh, shard(mesh, x.reshape(1 << k1, 1 << k2, -1), 1), tws, k1, k2, inverse), 5)
+        del tws
+        spk, rec["shard_pk_s"] = timed(lambda: shard_pk(pk, mesh))
+        perm = torch.from_numpy(h_permutation(spk.k1, spk.k2)).to(dev)
+        hp = h0[perm]
+        got = msm_sharded(mesh, spk.queries["h"], hp)
+        if curve.to_affine_host("fq", got) != want_h:
+            fail(f"dist D={D}: sharded h-MSM differs from the local K3 h-MSM")
+        rec["h_msm_ms"] = cuda_ms(lambda: msm_sharded(mesh, spk.queries["h"], hp), 3)
+        if not torch.equal(torch.cat(compute_h_sharded(spk, W[0])), h_local[perm]):
+            fail(f"dist D={D}: compute_h_sharded differs from compute_h[perm]")
+        rec["compute_h_sharded_ms"] = cuda_ms(lambda: compute_h_sharded(spk, W[0]), 3)
+        rec["prove_sharded_s"] = []
+        for i in (0, 1):
+            p, s = timed(lambda: prove_sharded(spk, W[i], *rs[i]))
+            if p != proofs[i]:
+                fail(f"dist D={D}: prove_sharded of witness {i} differs from prove_batch's")
+            rec["prove_sharded_s"].append(s)
+        if D == DIST_MESHES[-1]:
+            for i, p in enumerate(proofs[:2]):  # the sharded proofs, equal to these
+                if not groth16.verify(vk, p, [pubs[i]]):
+                    fail(f"dist: sharded proof {i} does not verify")
+            if groth16.verify(vk, proofs[0], [(pubs[0] + 1) % FR_MOD]):
+                fail("dist: a sharded proof verifies with a tampered public input")
+            # launches of one call of each sharded function, and the collectives' copies alone
+            calls = {"ntt_sharded": lambda: ntt_sharded(mesh, x, k1, k2),
+                     "msm_sharded_h": lambda: msm_sharded(mesh, spk.queries["h"], hp),
+                     "compute_h_sharded": lambda: compute_h_sharded(spk, W[0]),
+                     "shard_pk": lambda: shard_pk(pk, mesh)}
+            rec["launches_per_call"] = {}
+            for name, fn in calls.items():
+                before = dict(_build.LAUNCHES)
+                fn()
+                rec["launches_per_call"][name] = {key: v - before[key]
+                                                  for key, v in _build.LAUNCHES.items()
+                                                  if v != before[key]}
+            blocks = [make_rand(dev, 20262 + s)((D, (1 << k1) // D, (1 << k2) // D))
+                      for s in range(D)]
+            parts = [make_rand(dev, 20270 + s)((1,))[0] for s in range(D)]
+            rec["all_to_all_ms"] = cuda_ms(lambda: all_to_all(mesh, blocks, 0, 1), 5)
+            rec["gather_ms"] = cuda_ms(lambda: [gather(mesh, parts) for _ in range(3)], 5)
+        del spk
+        gc.collect()
+        out["meshes"][D] = rec
+        log(f"dist D={D}: four-step NTT/iNTT, sharded h-MSM, compute_h_sharded, prove_sharded "
+            f"of witnesses 0, 1 exact; {json.dumps(rec)}")
+
+    reqs, _ = spend_cases(DIST_REQUESTS)
+    fn = spend_witness_stage(dev)
+    out["pipeline"] = {}
+    for ndev in (3, 6):
+        pipe, init_s = timed(lambda: Groth16Pipeline(pk, fn, devices=[dev] * ndev))
+        got, s = timed(lambda: pipe.prove_stream(reqs, rs[:DIST_REQUESTS]))
+        if got != proofs[:DIST_REQUESTS]:
+            fail(f"dist: the pipeline on {ndev} devices differs from prove_batch's proofs")
+        out["pipeline"][ndev] = {"init_s": init_s, "stream_s": s,
+                                 "s_per_proof": s / DIST_REQUESTS}
+        del pipe
+    log(f"dist pipeline: {DIST_REQUESTS} proofs on [card] * 3 and * 6 equal prove_batch's: "
+        f"{json.dumps(out['pipeline'])}")
+    _, out["dryrun_s"] = timed(lambda: graft_entry_torch.dryrun_multichip(4, device=dev))
+    counts = dict(_build.LAUNCHES)
+    for key in ("mont", "ntt", "msm", "chains"):
+        if counts[key] <= 0:
+            fail(f"kernel {key} was not launched in the dist phase")
+    out["launches"] = counts
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     try:
         import torch
@@ -1457,6 +1660,16 @@ def main():
         W = assemble_witness(cs, spend_witness(*args))
         msm_breakdown(torch, msm, five_msms(pk, W, groth16.compute_h(pk.k, pk.mats, W)))
         k5_breakdown(torch, pk, W)
+        return
+    if "--dist" in sys.argv[1:]:
+        cs = build_spend_cs()
+        args, pubs = spend_batch(dev, 16)
+        pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
+        W = assemble_witness(cs, spend_witness(*args))
+        rs = [(1000 + i, 2000 + i) for i in range(16)]
+        proofs = groth16.prove_batch(pk, W, rs=rs)
+        h = groth16.compute_h(pk.k, pk.mats, W)
+        log("dist " + json.dumps(dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs)))
         return
 
     rand_elems = make_rand(dev, 20260)
@@ -1857,7 +2070,7 @@ def main():
         row["launches_per_prove"] = per_prove[row["key"]]
         row["launches_per_plain_prove"] = per_plain_prove[row["key"]]
 
-    del pk, vk, W, h, msms, kern, plain, sc, ic_pts, args, xm, br, want, a, b, wide
+    del msms, kern, plain, sc, ic_pts, args, xm, br, want, a, b, wide
     gc.collect()
     phase_done("4 K3 and K4 on the main path's inputs")
 
@@ -1865,6 +2078,15 @@ def main():
     cli = cli_phase(dev)
     log("cli " + json.dumps(cli))
     phase_done("6 cli")
+
+    # ---------------- the multi-device layer on virtual meshes of the card: Spend ----------------
+    dist = dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs)
+    for row in rows:
+        row["launches_dist"] = dist["launches"][row["key"]]
+    log("dist " + json.dumps(dist))
+    del pk, vk, W, h
+    gc.collect()
+    phase_done("7 dist")
 
     # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
     pob, pob_rows = pob_phase(dev, card)

@@ -1,5 +1,5 @@
 """Byte/array plumbing gadgets (reference circuits/utils/{array,selector,
-shift,concat,convert}.circom), vectorized over leading batch axes.
+shift,concat,convert,divide}.circom), vectorized over leading batch axes.
 
 Conventions:
 - byte arrays: int32 tensors, trailing axis = position;
@@ -37,6 +37,10 @@ def fit(a, n: int):
     """Fit (array.circom:47-57): truncate or zero-pad the trailing axis to n."""
     m = a.shape[-1]
     return a[..., :n] if m >= n else tf.pad(a, (0, n - m))
+
+
+def reverse(a):
+    return a.flip(-1)
 
 
 def selector(vals, select):
@@ -128,6 +132,14 @@ def limbs_to_be_bytes_checked(v, n: int):
     return be32[..., 32 - n:], (be32[..., :32 - n] == 0).all(-1)
 
 
+def be_bytes_to_limbs_any(b):
+    """BigEndianBytes2Num for up to 32 bytes -> limb scalar."""
+    n = b.shape[-1]
+    if n > 32:
+        raise ValueError(f"at most 32 bytes, got {n}")
+    return limb.be_bytes_to_limbs(tf.pad(b.to(I32), (32 - n, 0)))
+
+
 def is_byte_string(b):
     """AssertByteString (assert.circom:26-31) as a flag."""
     return ((b >= 0) & (b < 256)).all(-1)
@@ -163,3 +175,15 @@ def limb_fits_bits(v, bits: int):
     if rem:
         ok = ok & (v[..., full] < (1 << rem))
     return ok
+
+
+def limb_from_i32(x, shape_like=None):
+    """Small non-negative int32 scalar -> limb scalar (for mixed compares);
+    as pob_tpu's, the value is taken as uint32."""
+    return limb.small_to_limbs(torch.as_tensor(x).to(torch.int64) & 0xFFFFFFFF)
+
+
+def divide(a, b_static: int):
+    """Divide (divide.circom:17-33) with a static divisor: floor div + rem."""
+    a = torch.as_tensor(a).to(I32)
+    return a // b_static, a % b_static

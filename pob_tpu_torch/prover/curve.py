@@ -5,10 +5,12 @@ branchless add/double formulas (selects, never data-dependent control flow).
 Points: tuple (X, Y, Z) of coordinate tensors in Montgomery form, (m, 16) on
 G1 and (m, 2, 16) on G2; the point at infinity is Z == 0, written as
 (one, one, 0). These are the plain PyTorch versions of the device functions
-in ``csrc/curve.cuh``: on the card, point arithmetic runs only inside
-kernels K3 and K4, so these formulas call the plain field functions
-(``limb.*_plain``) on whatever device their tensors lie, and are the plain
-versions those kernels are checked against."""
+in ``csrc/curve.cuh``: on the card, point arithmetic runs inside the
+kernels, so with FqOps / Fq2Ops these formulas call the plain field
+functions (``limb.*_plain``) on whatever device their tensors lie, and are
+the plain versions those kernels are checked against. FqOpsK1 / Fq2OpsK1
+give the same formulas K1's field products and sums on the card, for the
+few point adds outside a kernel (the sharded MSM's reduction)."""
 
 from __future__ import annotations
 
@@ -68,44 +70,48 @@ class FqOps:
 
 
 class Fq2Ops:
-    """Coordinate ops for Fq2 = Fq[u]/(u^2+1): element shape (..., 2, 16)."""
+    """Coordinate ops for Fq2 = Fq[u]/(u^2+1): element shape (..., 2, 16),
+    every Fq product and sum through the Fq ops `fq`."""
 
     name = "fq2"
     coord_shape = (2, limb.L)
+    fq = FqOps
 
-    @staticmethod
-    def mul(a, b):
+    @classmethod
+    def mul(cls, a, b):
         # Karatsuba, the three Fq products stacked into one batched multiply
+        f = cls.fq
         a0, a1 = a[..., 0, :], a[..., 1, :]
         b0, b1 = b[..., 0, :], b[..., 1, :]
-        am = torch.stack(torch.broadcast_tensors(a0, a1, limb.add_plain(FQ, a0, a1)), -2)
-        bm = torch.stack(torch.broadcast_tensors(b0, b1, limb.add_plain(FQ, b0, b1)), -2)
-        t = limb.mont_mul_plain(FQ, am, bm)
+        am = torch.stack(torch.broadcast_tensors(a0, a1, f.add(a0, a1)), -2)
+        bm = torch.stack(torch.broadcast_tensors(b0, b1, f.add(b0, b1)), -2)
+        t = f.mul(am, bm)
         t0, t1, t2 = t[..., 0, :], t[..., 1, :], t[..., 2, :]
-        c0 = limb.sub_plain(FQ, t0, t1)
-        c1 = limb.sub_plain(FQ, limb.sub_plain(FQ, t2, t0), t1)
+        c0 = f.sub(t0, t1)
+        c1 = f.sub(f.sub(t2, t0), t1)
         return torch.stack([c0, c1], -2)
 
-    @staticmethod
-    def sqr(a):
+    @classmethod
+    def sqr(cls, a):
         # (c0 + c1 u)^2: c0' = (c0+c1)(c0-c1), c1' = 2 c0 c1
+        f = cls.fq
         a0, a1 = a[..., 0, :], a[..., 1, :]
-        am = torch.stack([limb.add_plain(FQ, a0, a1), a0], -2)
-        bm = torch.stack([limb.sub_plain(FQ, a0, a1), a1], -2)
-        t = limb.mont_mul_plain(FQ, am, bm)
-        return torch.stack([t[..., 0, :], limb.add_plain(FQ, t[..., 1, :], t[..., 1, :])], -2)
+        am = torch.stack([f.add(a0, a1), a0], -2)
+        bm = torch.stack([f.sub(a0, a1), a1], -2)
+        t = f.mul(am, bm)
+        return torch.stack([t[..., 0, :], f.add(t[..., 1, :], t[..., 1, :])], -2)
 
-    @staticmethod
-    def add(a, b):
-        return limb.add_plain(FQ, a, b)
+    @classmethod
+    def add(cls, a, b):
+        return cls.fq.add(a, b)
 
-    @staticmethod
-    def sub(a, b):
-        return limb.sub_plain(FQ, a, b)
+    @classmethod
+    def sub(cls, a, b):
+        return cls.fq.sub(a, b)
 
-    @staticmethod
-    def neg(a):
-        return limb.sub_plain(FQ, torch.zeros_like(a), a)
+    @classmethod
+    def neg(cls, a):
+        return cls.fq.neg(a)
 
     @staticmethod
     def is_zero(a):
@@ -125,8 +131,45 @@ class Fq2Ops:
         return torch.stack([c0, torch.zeros_like(c0)], -2)
 
 
+class FqOpsK1(FqOps):
+    """FqOps through the dispatching field functions: K1 on a CUDA tensor,
+    the plain versions on a CPU one. For point arithmetic outside the
+    kernels (the tree reduction of dist/msm_sharded.py), as pob_tpu's
+    curve ops go through its limb.mont_mul."""
+
+    @staticmethod
+    def mul(a, b):
+        return limb.mont_mul(FQ, a, b)
+
+    @staticmethod
+    def sqr(a):
+        return limb.mont_sqr(FQ, a)
+
+    @staticmethod
+    def add(a, b):
+        return limb.add(FQ, a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return limb.sub(FQ, a, b)
+
+    @staticmethod
+    def neg(a):
+        return limb.neg(FQ, a)
+
+
+class Fq2OpsK1(Fq2Ops):
+    """Fq2Ops over FqOpsK1."""
+
+    fq = FqOpsK1
+
+
 def ops_for(group: str):
     return FqOps if group == "g1" else Fq2Ops
+
+
+def k1_ops_for(group: str):
+    return FqOpsK1 if group == "g1" else Fq2OpsK1
 
 
 def _stack(ops, elems):

@@ -131,8 +131,9 @@ def _scatter(ops, n: int, keys, points, device):
 
 
 def horner_bits(ops, v):
-    """sum_e 2^e V[..., e] for V with 256 points on axis 1 (point tensors
-    (B, 256, ...)): a binary tree of lo + 2^s hi, s = 1, 2, 4, ..., 128."""
+    """sum_e 2^e V[..., e] for V with a power of two of points on axis 1
+    (point tensors (B, 2^t, ...)): a binary tree of lo + 2^s hi, s = 1, 2,
+    4, ..., 2^(t-1)."""
     s = 1
     while v[0].shape[1] > 1:
         lo = tuple(c[:, 0::2] for c in v)
@@ -148,7 +149,9 @@ def msm_plain(ops, points, scalars):
     puts P_i into bucket (b, w, d), and segment_sum adds each bucket. Bucket
     (b, w, d) then counts once at bit position 8w + j for every set bit j of
     d; segment_sum adds those into (B, 256) bit sums, and horner_bits folds
-    them. Returns (B,) Jacobian sums."""
+    them, over the bit positions below the next power of two above the
+    highest one any proof uses (small scalars need fewer doublings).
+    Returns (B,) Jacobian sums."""
     B = scalars.shape[0]
     dev = scalars.device
     dig = scalar_digits(scalars).long()  # (B, m, 32)
@@ -161,8 +164,10 @@ def msm_plain(ops, points, scalars):
     key, order = torch.sort((bkey[k] >> WINDOW_BITS) * WINDOW_BITS + j, stable=True)
     k = k[order]
     ekey, esum = segment_sum(ops, key, tuple(c[k] for c in bsum))
-    per_bit = _scatter(ops, B * 256, ekey, esum, dev)
-    return horner_bits(ops, tuple(c.reshape((B, 256) + c.shape[1:]) for c in per_bit))
+    e = ekey % 256
+    nbits = 1 << int(e.max()).bit_length() if e.numel() else 1
+    per_bit = _scatter(ops, B * nbits, ekey // 256 * nbits + e, esum, dev)
+    return horner_bits(ops, tuple(c.reshape((B, nbits) + c.shape[1:]) for c in per_bit))
 
 
 @functools.lru_cache(maxsize=8)

@@ -413,3 +413,103 @@ def test_planned_toy_slice_on_card(dev, monkeypatch):
     monkeypatch.setenv("POB_NO_PLAN", "1")
     assert groth16.prove_batch(pk, W, rs=rs) == planned
     assert all(groth16.verify(vk, p, x) for p, x in zip(planned, pubs))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k3_small_shards_match_plain(dev, group):
+    """K3 at B = 1 over the few points a shard of a toy key holds (m = 1-8),
+    infinity padding (the (0, 0) bases) and zero scalars included."""
+    ops = curve.ops_for(group)
+    for m in (1, 2, 3, 5, 8):
+        sc = _elems((m,), 20 + m).to(dev)
+        pts = tuple(c.clone() for c in msm.fixed_base_msm(group, sc))
+        pts[2][-1] = 0  # the last point at infinity
+        ssc = _elems((1, m), 30 + m).to(dev)
+        ssc[0, 0] = 0
+        got = msm.msm_batched(group, pts, ssc)
+        want = msm.msm_plain(ops, pts, ssc)
+        assert curve.to_affine_host_batch(ops.name, got) == curve.to_affine_host_batch(
+            ops.name, want), m
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_ntt_sharded_k10_on_card(dev, D):
+    """The four-step NTT at k = 10 (5 + 5) on a virtual mesh of the card, both
+    ways, against the local K2 transform."""
+    from pob_tpu_torch.dist.mesh import data_mesh
+    from pob_tpu_torch.dist.ntt_sharded import ntt_sharded, untranspose_host
+
+    x = _elems((1 << 10,), 40).to(dev)
+    for inverse, local in ((False, ntt.ntt), (True, ntt.intt)):
+        c = ntt_sharded(data_mesh(D, device=dev), x, 5, 5, inverse=inverse)
+        assert all(b.is_cuda for b in c)
+        np.testing.assert_array_equal(untranspose_host(c), local(x, 10).cpu().numpy())
+
+
+@pytest.mark.parametrize("group,D", [("g1", 4), ("g2", 2)])
+def test_msm_sharded_on_card_matches_ref(dev, group, D):
+    """msm_sharded on a virtual mesh of the card (each shard's K6 bases and
+    K3, the partials gathered on the first shard and reduced by K1 point
+    adds), with infinity padding (m = 7), against the g1_mul / g2_mul sum."""
+    from pob_tpu_torch.dist.mesh import data_mesh
+    from pob_tpu_torch.dist.msm_sharded import msm_sharded
+
+    mul, add = (g1_mul, g1_add) if group == "g1" else (g2_mul, g2_add)
+    gen = G1_GEN if group == "g1" else G2_GEN
+    to_dev = curve.g1_points_to_device if group == "g1" else curve.g2_points_to_device
+    m = 7
+    pts = [mul(gen, 3 * i + 2) for i in range(m)]
+    scalars = [(i * 7919 + 5) ** 5 % FR_MOD for i in range(m)]
+    got = msm_sharded(data_mesh(D, device=dev), to_dev(pts, dev),
+                      limb.to_device(limb.ints_to_limbs(scalars), dev))
+    assert all(c.is_cuda for c in got)
+    want = None
+    for sc, p in zip(scalars, pts):
+        want = add(want, mul(p, sc))
+    assert curve.to_affine_host("fq" if group == "g1" else "fq2", got) == want
+
+
+def test_prove_sharded_on_card_equals_prove(dev):
+    """prove_sharded at D = 2 on a virtual mesh of the card (shards' K6 bases,
+    K3 per shard, the four-step h stage) equals prove at fixed (r, s)."""
+    from pob_tpu_torch.dist.mesh import data_mesh
+    from pob_tpu_torch.dist.prove_sharded import prove_sharded, shard_pk
+    from pob_tpu_torch.prover import groth16
+
+    cs, pk, vk, W, pubs = _toy_keyed(dev)
+    spk = shard_pk(pk, data_mesh(2, device=dev))
+    for i in range(2):
+        want = groth16.prove(pk, W[i], r=1234, s=5678)
+        assert prove_sharded(spk, W[i], r=1234, s=5678) == want
+        assert groth16.verify(vk, want, pubs[i])
+
+
+def test_pipeline_on_card_equals_prove_batch(dev):
+    """Groth16Pipeline on [card] * 3 and [card] * 6 (an MSM group of 4
+    shards): the streamed proofs equal prove_batch's at the same (r, s)."""
+    from pob_tpu_torch.dist.pipeline import Groth16Pipeline
+    from pob_tpu_torch.prover import groth16
+
+    cs, pk, vk, W, pubs = _toy_keyed(dev)
+    rs = [(5 + i, 6 + i) for i in range(5)]
+    want = groth16.prove_batch(pk, W, rs=rs)
+    reqs = [(i,) for i in range(5)]
+    for n in (3, 6):
+        pipe = Groth16Pipeline(pk, lambda i: W[i], devices=[dev] * n)
+        assert pipe.prove_stream(reqs, rs) == want, n
+
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k1_point_ops_on_card_match_plain(dev, group):
+    """tree_reduce with K1's field ops (curve.k1_ops_for, the sharded MSM's
+    reduction) equals it with the plain ones, doubling and cancel included."""
+    pts = tuple(c.clone() for c in msm.fixed_base_msm(group, _elems((7,), 50).to(dev)))
+    ops = curve.ops_for(group)
+    for c in pts:  # tree pairs (0, 3), (1, 4), (2, 5): P + P and Q + (-Q)
+        c[3] = c[0]
+    pts[0][4], pts[2][4] = pts[0][1], pts[2][1]
+    pts[1][4] = ops.neg(pts[1][1])
+    got = curve.tree_reduce(curve.k1_ops_for(group), pts)
+    want = curve.tree_reduce(ops, pts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -112,6 +112,29 @@ def test_msm_plain_g2_batched_vs_ref():
         assert tc.to_affine_host("fq2", tuple(c[b] for c in got)) == expect
 
 
+@pytest.mark.parametrize("top", [None, 0, 127, 128, 255])
+def test_msm_plain_fold_edges(top):
+    """K3's plain version folds only the bit positions below the next power
+    of two above the highest set bit of its scalars: against g1_mul sums
+    where that bit is 0 (one position), 127 (128 positions, all used), 128
+    (256 positions, from 129 used) and 255 (a 256-bit integer, above Fr:
+    the fold is over the integer's digits), and with every scalar zero.
+    Row 1 of the batch stays below row 0's top bit."""
+    pts = [g1_mul(G1_GEN, k) for k in _scalars(3, 51)]
+    if top is None:
+        sc = [[0, 0, 0], [0, 0, 0]]
+    else:
+        low = [k % (1 << top) for k in _scalars(6, 52)]
+        sc = [[(1 << top) | low[0], low[1], 0], [low[2] >> 1, low[3], low[4]]]
+    got = tm.msm_batched("g1", tc.g1_points_to_device(pts, "cpu"),
+                         torch.from_numpy(np.stack([tl.ints_to_limbs(s) for s in sc])))
+    for b in range(2):
+        expect = None
+        for s, p in zip(sc[b], pts):
+            expect = g1_add(expect, g1_mul(p, s))
+        assert tc.to_affine_host("fq", tuple(c[b] for c in got)) == expect, b
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_fixed_base_plain_vs_ref(group):
     """K4's plain version: k_i * G for scalars including 0, 1 and r - 1."""
