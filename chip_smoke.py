@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k4             # phase 1, then K4's times alone
     python3 chip_smoke.py --k5-k6          # phase 1, then K5's and K6's times alone
     python3 chip_smoke.py --dist           # phase 1, then the multi-device phase (7) alone
+    python3 chip_smoke.py --multihost      # phase 1, then the mesh across processes (8) alone
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
@@ -105,10 +106,25 @@ Phases (any failure exits non-zero; there is no CPU run):
      graft_entry_torch.dryrun_multichip(4, card). Launch counters zeroed
      before, K1, K2, K3 and K6 must each have run. One `dist {...}` JSON
      line (see dist_phase).
+  8. (run after phase 7, before phase 5, on phase 3's Spend key, witnesses
+     and proofs) the dist layer on a mesh across processes: one NCCL rank
+     per visible card, each a process of this script started through
+     subprocess and joined through init_multihost; the key reaches them by
+     save_pk, the witnesses and (r, s) by files. In every rank, launch
+     counters zeroed before: shard_pk, prove_sharded of witnesses 0 and 1
+     (every rank's proofs equal prove_batch's), the four-step NTT and its
+     inverse at (9, 9) against the local K2 transform, the sharded h-MSM
+     against the local K3 call; K1, K2, K3 and K6 must each have run; then
+     dryrun_multichip over the world in every rank. A rank's failure or
+     the deadline (MULTIHOST_DEADLINE_S) kills the others and fails the
+     script. One `multihost {...}` JSON line (world size, backend, NCCL
+     version, shard_pk and prove_sharded seconds, the collectives' ms,
+     peak memory per rank; see multihost_phase).
 Each phase's end is printed with the script's elapsed time (`phases_s`).
 Then the kernel table as one JSON line (Spend rows with their launches on
-the main path, the cli phase, the dist phase and the PoB path, then the PoB
-rows), the card, and last, the device line.
+the main path, the cli phase, the dist phase, the multihost phase (summed
+over its ranks) and the PoB path, then the PoB rows), the card, and last,
+the device line.
 
 --k4 times K4 through entry points every tree of the port has
 (msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
@@ -1610,6 +1626,195 @@ def dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs) -> dict:
     return out
 
 
+
+MULTIHOST_PROOFS = 2  # Spend witnesses proved by prove_sharded in the multihost phase
+MULTIHOST_TIMEOUT_S = 120  # init_process_group's timeout in every rank
+MULTIHOST_DEADLINE_S = 240  # the multihost phase's ranks are killed after this
+
+
+def multihost_phase(card, pk, vk, W, rs, proofs, pubs) -> dict:
+    """Phase 8: the dist layer on a mesh across processes, one NCCL rank per
+    visible card (torch.cuda.device_count() ranks, each a process of this
+    script with --multihost-rank, started with subprocess, never fork). The
+    kernels are already built; the Spend key reaches the ranks through
+    save_pk, the first MULTIHOST_PROOFS witnesses and their (r, s) through
+    files, all under build/chip_smoke/multihost/ (deleted afterwards). Each
+    rank (multihost_rank) checks its own results exactly and writes them;
+    here every rank's prove_sharded proofs must equal prove_batch's (the
+    plain path's; verified, a tampered public rejected), and K1, K2, K3 and
+    K6 must each have run in every rank. A rank that fails, or a world that
+    passes MULTIHOST_DEADLINE_S, kills the others and fails the phase."""
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import groth16
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "build", "chip_smoke", "multihost")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    want = proofs[:MULTIHOST_PROOFS]
+    for i, p in enumerate(want):
+        if not groth16.verify(vk, p, [pubs[i]]):
+            fail(f"multihost: proof {i} of prove_batch does not verify")
+    if groth16.verify(vk, want[0], [(pubs[0] + 1) % FR_MOD]):
+        fail("multihost: a proof verifies with a tampered public input")
+    t0 = time.perf_counter()
+    groth16.save_pk(os.path.join(d, "pk.npz"), pk, vk)
+    save_s = time.perf_counter() - t0
+    np.save(os.path.join(d, "witnesses.npy"), W[:MULTIHOST_PROOFS].cpu().numpy())
+    with open(os.path.join(d, "rs.json"), "w") as f:
+        json.dump([list(x) for x in rs[:MULTIHOST_PROOFS]], f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # every rank is on this host
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-rank",
+                               str(r), str(world), str(port), d],
+                              cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.perf_counter() - t0 > MULTIHOST_DEADLINE_S
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    world_s = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                log(f"multihost rank {r} (exit {rcs[r]}), its output's end:\n{f.read()[-4000:]}")
+        fail(f"multihost: ranks exited {rcs} after {world_s:.1f} s "
+             f"(deadline {MULTIHOST_DEADLINE_S} s)")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    want = json.loads(json.dumps(want))
+    for r, res in enumerate(ranks):
+        if res.pop("proofs") != want:
+            fail(f"multihost: rank {r}'s prove_sharded proofs differ from prove_batch's")
+        for key in ("mont", "ntt", "msm", "chains"):
+            if res["launches"][key] <= 0:
+                fail(f"multihost: kernel {key} was not launched in rank {r}")
+    shutil.rmtree(d)
+    return {"card": card, "world": world, "backend": ranks[0]["backend"],
+            "nccl": ranks[0]["nccl"], "save_pk_s": save_s, "world_s": world_s,
+            "launches": {key: sum(res["launches"][key] for res in ranks)
+                         for key in ranks[0]["launches"]},
+            "ranks": ranks, "phase_s": time.perf_counter() - t_phase}
+
+
+def multihost_rank(rank: int, world: int, port: int, d: str):
+    """One rank of phase 8: join the NCCL world through init_multihost (its
+    card: rank modulo the visible cards), load the key on the card, then,
+    with the launch counters zeroed: shard_pk over data_mesh() (the mesh
+    across processes), prove_sharded of each witness at its (r, s), the
+    four-step NTT and its inverse at (9, 9) on a random Montgomery vector
+    (the same on every rank), the sharded h-MSM over witness 0's h (permuted
+    as the sharded key's points), each timed, and the collectives alone
+    (all_to_all of the four-step's blocks, the all-gather of one Jacobian
+    partial, broadcast_ints of r, s); the counters read; then against this
+    card's local K2 transforms and K3 h-MSM, exactly; last,
+    graft_entry_torch.dryrun_multichip over the world. Writes
+    d/rank<R>.json."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    import graft_entry_torch
+    from pob_tpu_torch import _build
+    from pob_tpu_torch.dist.mesh import (all_to_all, broadcast_ints, data_mesh, gather,
+                                         init_multihost, shard)
+    from pob_tpu_torch.dist.msm_sharded import msm_sharded
+    from pob_tpu_torch.dist.ntt_sharded import (_outer_twiddle, four_step_local, ntt_sharded,
+                                                table_shards, untranspose_host)
+    from pob_tpu_torch.dist.prove_sharded import h_permutation, prove_sharded, shard_pk
+    from pob_tpu_torch.prover import curve, groth16, msm, ntt
+
+    built = os.path.join(_build.BUILD, _build.sources_hash())
+    missing = [s for s in _build.SOURCES
+               if not os.path.exists(os.path.join(built, s.replace(".cu", ".so")))]
+    if missing:  # the parent builds them: a rank never starts nvcc
+        fail(f"multihost rank {rank}: kernels not built: {missing}")
+    t0 = time.perf_counter()
+    info = init_multihost(f"127.0.0.1:{port}", world, rank,
+                          timeout=datetime.timedelta(seconds=MULTIHOST_TIMEOUT_S))
+    mesh = data_mesh()
+    dev = mesh.devices[rank]
+    out = {"rank": rank, "info": info, "mesh": [str(x) for x in mesh.devices],
+           "backend": torch.distributed.get_backend(), "nccl": str(torch.cuda.nccl.version()),
+           "init_s": time.perf_counter() - t0}
+    pk, vk = groth16.load_pk(os.path.join(d, "pk.npz"), device=dev)
+    W = torch.from_numpy(np.load(os.path.join(d, "witnesses.npy"))).to(dev)
+    with open(os.path.join(d, "rs.json")) as f:
+        rs = json.load(f)
+    k = pk.k
+    k1, k2 = k // 2, k - k // 2
+    x = make_rand("cpu", 20281)((1 << k,)).to(dev)  # the same vector on every rank
+    out["ready_s"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    spk, out["shard_pk_s"] = timed(lambda: shard_pk(pk, mesh))
+    proofs, out["prove_sharded_s"] = [], []
+    for i in range(len(W)):
+        p, s = timed(lambda: prove_sharded(spk, W[i], *rs[i]))
+        proofs.append(p)
+        out["prove_sharded_s"].append(s)
+    four = {inv: untranspose_host(list(gather(mesh, ntt_sharded(mesh, x, k1, k2, inverse=inv))))
+            for inv in (False, True)}
+    h0 = groth16.compute_h(k, pk.mats, W[:1])[0]
+    hp = h0[torch.from_numpy(h_permutation(spk.k1, spk.k2)).to(dev)]
+    got_h = curve.to_affine_host("fq", msm_sharded(mesh, spk.queries["h"], hp))
+    tws = table_shards(mesh, _outer_twiddle(k1, k2, False), 1)
+    blocks = [make_rand(dev, 20282)((world, (1 << k1) // world, (1 << k2) // world))]
+    partial = [make_rand(dev, 20283)((3, 16))]
+    out["collectives_ms"] = {
+        "four_step_ntt": cuda_ms(lambda: four_step_local(
+            mesh, shard(mesh, x.reshape(1 << k1, 1 << k2, -1), 1), tws, k1, k2), 5),
+        "msm_sharded_h": cuda_ms(lambda: msm_sharded(mesh, spk.queries["h"], hp), 3),
+        "all_to_all": cuda_ms(lambda: all_to_all(mesh, blocks, 0, 1), 5),
+        "all_gather_partial": cuda_ms(lambda: gather(mesh, partial), 5),
+        "broadcast_ints": cuda_ms(lambda: broadcast_ints(mesh, rs[0]), 5)}
+    out["launches"] = dict(_build.LAUNCHES)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    for inv, local in ((False, ntt.ntt), (True, ntt.intt)):
+        if not np.array_equal(four[inv], local(x, k).cpu().numpy()):
+            fail(f"multihost rank {rank}: the four-step {'inverse ' if inv else ''}NTT at "
+                 f"({k1}, {k2}) differs from the local K2 transform")
+    want_h = curve.to_affine_host("fq", tuple(c[0] for c in msm.msm_batched(
+        "g1", pk.h_query, h0[None], pk.bases and pk.bases["h_query"])))
+    if got_h != want_h:
+        fail(f"multihost rank {rank}: the sharded h-MSM differs from the local K3 h-MSM")
+    out["proofs"] = proofs
+    _, out["dryrun_s"] = timed(lambda: graft_entry_torch.dryrun_multichip(world))
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    log(f"multihost rank {rank} of {world}: every check exact in "
+        f"{time.perf_counter() - t0:.1f} s")
+
 def main():
     try:
         import torch
@@ -1617,6 +1822,10 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
+    if "--multihost-rank" in sys.argv[1:]:  # a rank of phase 8, started by multihost_phase
+        i = sys.argv.index("--multihost-rank")
+        multihost_rank(*(int(a) for a in sys.argv[i + 1:i + 4]), sys.argv[i + 4])
+        return
     try:
         from pob_tpu_torch import _build
     except ImportError as e:
@@ -1670,6 +1879,15 @@ def main():
         proofs = groth16.prove_batch(pk, W, rs=rs)
         h = groth16.compute_h(pk.k, pk.mats, W)
         log("dist " + json.dumps(dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs)))
+        return
+    if "--multihost" in sys.argv[1:]:
+        cs = build_spend_cs()
+        args, pubs = spend_batch(dev, MULTIHOST_PROOFS)
+        pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev)
+        W = assemble_witness(cs, spend_witness(*args))
+        rs = [(1000 + i, 2000 + i) for i in range(MULTIHOST_PROOFS)]
+        proofs = plain_path(lambda: groth16.prove_batch(pk, W, rs=rs))
+        log("multihost " + json.dumps(multihost_phase(card, pk, vk, W, rs, proofs, pubs)))
         return
 
     rand_elems = make_rand(dev, 20260)
@@ -2084,9 +2302,16 @@ def main():
     for row in rows:
         row["launches_dist"] = dist["launches"][row["key"]]
     log("dist " + json.dumps(dist))
+    phase_done("7 dist")
+
+    # ---------------- the dist layer on a mesh across processes: Spend ----------------
+    multihost = multihost_phase(card, pk, vk, W, rs, proofs, pubs)
+    for row in rows:
+        row["launches_multihost"] = multihost["launches"][row["key"]]
+    log("multihost " + json.dumps(multihost))
     del pk, vk, W, h
     gc.collect()
-    phase_done("7 dist")
+    phase_done("8 multihost")
 
     # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
     pob, pob_rows = pob_phase(dev, card)

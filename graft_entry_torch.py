@@ -6,14 +6,16 @@ __graft_entry__.py for the JAX package.
   fixture tests/fixtures/pob_input.json. Returns (fn, args); fn(*args) gives
   (commitment limbs (2, 16), valid (2,)).
 - dryrun_multichip(n, device=None): the multi-device path on an n-device
-  mesh (the first n cards, or with `device` n copies of that device: a
-  virtual mesh): data-parallel PoB forward, point-sharded MSM with its
-  collective reduction, the four-step distributed NTT, and a mesh-sharded
-  Groth16 prove, one step each on small shapes, with a progress line after
-  every step."""
+  mesh (the first n cards; with `device` n copies of that device: a
+  virtual mesh; once init_multihost has run, the mesh across its n
+  processes, each running this function): data-parallel PoB forward,
+  point-sharded MSM with its collective reduction, the four-step
+  distributed NTT, and a mesh-sharded Groth16 prove, one step each on small
+  shapes, with a progress line after every step."""
 
 import json
 import os
+import random
 import time
 
 _T0 = time.perf_counter()
@@ -76,7 +78,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     import torch
 
     from pob_tpu_torch.circuits.proof_of_burn import pob_forward
-    from pob_tpu_torch.dist.mesh import data_mesh, on, shard
+    from pob_tpu_torch.dist.mesh import data_mesh, gather, local, on, shard
     from pob_tpu_torch.dist.msm_sharded import msm_g1_sharded
     from pob_tpu_torch.dist.ntt_sharded import ntt_sharded, untranspose_host
     from pob_tpu_torch.dist.prove_sharded import prove_sharded, shard_pk
@@ -85,19 +87,22 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     from pob_tpu_torch.prover import curve, groth16, ntt
 
     mesh = data_mesh(n_devices, device=device)
-    dev = mesh.devices[0]
-    _log(f"mesh {[str(d) for d in mesh.devices]}")
+    dev = mesh.devices[mesh.local_ids[0]]
+    where = "one process" if mesh.rank is None else f"rank {mesh.rank} of {n_devices}"
+    _log(f"mesh {[str(d) for d in mesh.devices]} ({where})")
     # step 2's MSM length, and step 4's chain length (domain 2^k)
     k = max(6, 2 * (n_devices - 1).bit_length())
     n_msm = 1 << k
 
-    # 1. data-parallel witness generation: the proof batch sharded over the mesh
+    # 1. data-parallel witness generation: the proof batch sharded over the
+    # mesh, this process's shards forwarded
     cfg, kwargs = _pob_batch(n_devices)
-    shards = {name: shard(mesh, torch.from_numpy(np.ascontiguousarray(v, np.int32)))
-              for name, v in kwargs.items()}
-    for i, d in enumerate(mesh.devices):
+    names = sorted(kwargs)
+    shards = [shard(mesh, torch.from_numpy(np.ascontiguousarray(kwargs[name], np.int32)))
+              for name in names]
+    for _, d, *parts in local(mesh, *shards):
         with on(d):
-            out = pob_forward(cfg, **{name: s[i] for name, s in shards.items()})
+            out = pob_forward(cfg, **dict(zip(names, parts)))
         if not bool(out["valid"].all()):
             raise AssertionError("sharded witness gen must validate")
     _log("step 1/4 ok: data-parallel PoB witness generation")
@@ -118,7 +123,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     r = (1 << 256) % FR_MOD
     coeffs = [(i * 7919 + 13) % FR_MOD for i in range(n)]
     a = limb.to_device(limb.ints_to_limbs([c * r % FR_MOD for c in coeffs]), dev)
-    c_out = ntt_sharded(mesh, a, k1, k2)
+    c_out = list(gather(mesh, ntt_sharded(mesh, a, k1, k2)))
     if not np.array_equal(untranspose_host(c_out), ntt.ntt(a, k1 + k2).cpu().numpy()):
         raise AssertionError("four-step NTT differs from the local transform")
     _log(f"step 3/4 ok: four-step all_to_all NTT (n={n})")
@@ -134,7 +139,10 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     for _ in range(1, n_mul):
         cvals.append(cvals[-1] * cvals[-1] % FR_MOD)
     w = [1, cvals[-1] * x % FR_MOD, cvals[-1] * y % FR_MOD, x, y] + cvals
-    pk, vk = groth16.setup(cs, plan=False, device=dev)
+    # toxic waste from one seed, so that every rank of a mesh across
+    # processes makes the same key
+    rnd = random.Random(7503)
+    pk, vk = groth16.setup(cs, rng=lambda: rnd.randrange(1, FR_MOD), plan=False, device=dev)
     _log(f"step 4/4: setup done (domain 2^{pk.k}, nw={cs.num_wires})")
     witness = limb.ints_to_limbs(w)
     spk = shard_pk(pk, mesh)

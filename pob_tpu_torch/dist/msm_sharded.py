@@ -3,13 +3,16 @@ pob_tpu/dist/msm_sharded.py).
 
 Points and scalars are partitioned along the mesh axis: each shard runs K3
 (``msm.msm_batched`` at B = 1, over the shard's own shifted bases, made by
-K6 on its device) over its points. The D Jacobian partials are then copied
-to the mesh's first device and reduced there by a tree of point adds whose
-field products and sums are K1 launches (``curve.FqOpsK1``): point addition
-is not a sum over coordinates, so the collective moves 3 coordinates per
-shard, next to nothing beside the local work. pob_tpu all-gathers the
-partials onto every shard and each reduces its own copy; one reduced copy
-is all the caller reads.
+K6 on its device) over its points. The D Jacobian partials (3 coordinates
+each, one tensor per shard) are then gathered and reduced by a tree of
+point adds whose field products and sums are K1 launches
+(``curve.FqOpsK1``): point addition is not a sum over coordinates, so the
+collective moves 3 coordinates per shard, next to nothing beside the local
+work. On a mesh across processes the gather is an all-gather and every rank
+reduces its own copy, as pob_tpu's shards do, so every rank returns the
+same point; on a mesh that one process drives the partials are copied to
+the mesh's first device and reduced there once, since one reduced copy is
+all the caller reads.
 
 pob_tpu's body sends a shard of fewer than 4,096 points to its bitwise
 double-and-add MSM; the port sends every size to K3."""
@@ -22,13 +25,13 @@ import torch
 
 from ..field import limb
 from ..prover import curve, msm
-from .mesh import Mesh, gather, on, shard
+from .mesh import Mesh, gather, local, on, shard
 
 
 @dataclass
 class ShardedPoints:
-    """A point query split over a mesh: per shard, its Jacobian points
-    (mp / D,) on its device and, on the card, their K3 bases
+    """A point query split over a mesh: per shard of this process, its
+    Jacobian points (mp / D,) on its device and, on the card, their K3 bases
     (``msm.affine_bases``; None on the CPU, whose plain MSM adds Jacobian
     points); m the true count, mp the count padded with infinity."""
 
@@ -51,8 +54,8 @@ def _pad_shard_points(points, mesh: Mesh, perm=None) -> ShardedPoints:
     """pob_tpu's prove_sharded._pad_shard_points (here, where the sharded MSM
     and the pipeline use it too): gather a Jacobian batch through `perm` if
     given, pad it to a multiple of the mesh size with infinity (Z = 0) and
-    split it over the mesh, with each shard's K3 bases made by K6 on its
-    card."""
+    split it over the mesh, with the K3 bases of this process's shards made
+    by K6 on their cards."""
     ndev = len(mesh.devices)
     group = _group(points)
     m = int(points[0].shape[0])
@@ -64,11 +67,11 @@ def _pad_shard_points(points, mesh: Mesh, perm=None) -> ShardedPoints:
         inf = curve.infinity(curve.ops_for(group), (mp - m,), points[0].device)
         points = tuple(torch.cat([c, i], 0) for c, i in zip(points, inf))
     per_coord = [shard(mesh, c) for c in points]
-    shards = [tuple(p[i] for p in per_coord) for i in range(ndev)]
+    shards = list(zip(*per_coord))
     bases = None
     if mesh.devices[0].type == "cuda":
         bases = []
-        for dev, pts in zip(mesh.devices, shards):
+        for _, dev, pts in local(mesh, shards):
             with on(dev):
                 bases.append(msm.affine_bases(group, pts))
     return ShardedPoints(group, shards, bases, m, mp)
@@ -84,22 +87,25 @@ def _pad_scalars(sc, mp: int):
 def msm_sharded(mesh: Mesh, points, scalars):
     """points: a ShardedPoints, or Jacobian tensors with leading axis m
     (sharded here, bases included), G1 or G2 by their shape; scalars: (m,
-    16) canonical limbs, or the list of their shards. Returns one Jacobian
-    point on the mesh's first device, where the D partials are reduced."""
+    16) canonical limbs, or the list of this process's shards. Returns one
+    Jacobian point: on the mesh's first device for a mesh that one process
+    drives, on its own device on every rank of a mesh across processes."""
     group = _group(points)
     if not isinstance(points, ShardedPoints):
         points = _pad_shard_points(points, mesh)
     if not isinstance(scalars, list):
         scalars = _pad_scalars(scalars, points.mp)
     sc = shard(mesh, scalars)
+    bases = points.bases or [None] * len(sc)
     partials = []
-    for i, dev in enumerate(mesh.devices):
+    for _, dev, pts, s, b in local(mesh, points.shards, sc, bases):
         with on(dev):
-            bases = points.bases[i] if points.bases is not None else None
-            partials.append(msm.msm_batched(group, points.shards[i], sc[i][None], bases))
-    stacked = tuple(gather(mesh, [p[c][0] for p in partials]) for c in range(3))
-    with on(mesh.devices[0]):
-        return curve.tree_reduce(curve.k1_ops_for(group), stacked)
+            p = msm.msm_batched(group, pts, s[None], b)
+            partials.append(torch.stack([c[0] for c in p]))  # (3, ...): X, Y, Z
+    stacked = gather(mesh, partials)  # (D, 3, ...)
+    with on(stacked.device):
+        coords = tuple(c.contiguous() for c in stacked.unbind(1))
+        return curve.tree_reduce(curve.k1_ops_for(group), coords)
 
 
 def _of_group(group: str, points):

@@ -7,11 +7,13 @@ n2. Then
 so: (1) local NTT over the n1 columns, (2) local twiddle by w^{n2 k1},
 (3) all_to_all transpose resharding k1, (4) local NTT over the n2 rows.
 Output layout is the transposed matrix C[k1, k2] sharded along k1, as the
-list of its D row blocks; `untranspose_host` reorders it for verification.
+list of this process's row blocks (all D of them on a mesh that one process
+drives); `untranspose_host` reorders it for verification.
 
 There is no new kernel: the small transforms are K2 (``ntt.ntt`` /
 ``ntt.intt``, the columns first copied to contiguous rows), the twiddle is
-K1, and the transpose is the mesh's all_to_all (copies).
+K1, and the transpose is the mesh's all_to_all (copies, or
+``all_to_all_single`` across processes).
 
 Step 3 inserts the gathered axis at 1, so that row k1 of shard r holds the
 n2 of source shard s at s * N2/D + b, in natural order. pob_tpu's body
@@ -30,7 +32,7 @@ from ..field import limb
 from ..field.limb import FR
 from ..field.ref import FR_MOD
 from ..prover import ntt
-from .mesh import Mesh, all_to_all, on, shard
+from .mesh import Mesh, all_to_all, local, on, shard
 
 _R = (1 << 256) % FR_MOD
 
@@ -62,32 +64,34 @@ def four_step_local(mesh: Mesh, blocks: list, tws: list, k1: int, k2: int,
                     inverse: bool = False) -> list:
     """The four-step body over the mesh's shards.
 
-    blocks[i]: (N1, N2/D, 16) Montgomery limbs on shard i: full columns for
-    a slice of n2 of the matrix view A[n1, n2] of a natural-order vector
-    x[n1*N2 + n2]. tws[i]: the matching slice of _outer_twiddle(k1, k2,
-    inverse). Returns the D blocks (N1/D, N2, 16): C[k1, k2] = X[k2*N1 + k1]
-    sharded along k1. With inverse=True both small transforms are inverse
-    NTTs (their 1/N1 and 1/N2 factors compose to the full 1/N) and tws must
-    be the inverse table."""
+    blocks: shard i's (N1, N2/D, 16) Montgomery limbs, for each shard i of
+    this process: full columns for a slice of n2 of the matrix view A[n1,
+    n2] of a natural-order vector x[n1*N2 + n2]. tws: the matching slices of
+    _outer_twiddle(k1, k2, inverse). Returns this process's blocks (N1/D,
+    N2, 16) of C[k1, k2] = X[k2*N1 + k1] sharded along k1. With
+    inverse=True both small transforms are inverse NTTs (their 1/N1 and
+    1/N2 factors compose to the full 1/N) and tws must be the inverse
+    table."""
     ndev = len(mesh.devices)
     n1 = 1 << k1
     small = ntt.intt if inverse else ntt.ntt
     twiddled = []
-    for dev, block, tw in zip(mesh.devices, blocks, tws):
+    for _, dev, block, tw in local(mesh, blocks, tws):
         with on(dev):
             cols = small(block.movedim(0, -2).contiguous(), k1)  # step 1: over n1
             b = limb.mont_mul(FR, cols.movedim(-2, 0), tw)  # step 2: (N1, N2/D)
         twiddled.append(b.reshape(ndev, n1 // ndev, b.shape[1], limb.L))
     out = []
-    for dev, b in zip(mesh.devices, all_to_all(mesh, twiddled, 0, 1)):  # step 3
+    for _, dev, b in local(mesh, all_to_all(mesh, twiddled, 0, 1)):  # step 3
         with on(dev):
             out.append(small(b.reshape(n1 // ndev, 1 << k2, limb.L), k2))  # step 4: over n2
     return out
 
 
 def ntt_sharded(mesh: Mesh, a, k1: int, k2: int, inverse: bool = False) -> list:
-    """a: (N1*N2, 16) Montgomery limbs, natural order. Returns C of shape
-    (N1, N2, 16) as its D blocks (N1/D, N2, 16) along axis 0, with
+    """a: (N1*N2, 16) Montgomery limbs, natural order (on a mesh across
+    processes, every rank's a). Returns C of shape (N1, N2, 16) as this
+    process's blocks of its D blocks (N1/D, N2, 16) along axis 0, with
     X[k2*N1 + k1] = C[k1, k2]. inverse=True computes the inverse transform
     (including the 1/n scale). The twiddle table is sharded per call (the
     host table is made once); the sharded prove keeps its tables on its
@@ -102,8 +106,9 @@ def ntt_sharded(mesh: Mesh, a, k1: int, k2: int, inverse: bool = False) -> list:
 
 
 def untranspose_host(c) -> np.ndarray:
-    """C[k1, k2] (an array, or the list of its row blocks) -> X[k2*N1 + k1]
-    on the host (verification helper)."""
+    """C[k1, k2] (an array, or the list of all its row blocks: on a mesh
+    across processes, gather them first) -> X[k2*N1 + k1] on the host
+    (verification helper)."""
     if isinstance(c, list):
         c = torch.cat([b.cpu() for b in c])
     c = np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c)

@@ -20,7 +20,10 @@ their K3 bases) are put on the stage's group once, at construction.
 
 The MSM group can hold several devices: S2 then point-shards its MSMs over
 the group's mesh (msm_sharded); with one device it runs K3 per query, the
-key's plain path, as pob_tpu's single-device stage does."""
+key's plain path, as pob_tpu's single-device stage does.
+
+The pipeline is single-controller, as pob_tpu's is: one process drives
+every stage group, so it does not run on a mesh across processes."""
 
 from __future__ import annotations
 
@@ -34,15 +37,17 @@ from .. import _build
 from ..field import limb
 from ..field.ref import FR_MOD
 from ..prover import groth16, msm
-from .mesh import Mesh, _concrete, data_mesh, on, send
+from .mesh import Mesh, _concrete, data_mesh, in_process_group, on, send
 from .msm_sharded import _pad_shard_points, msm_sharded
 
 class Groth16Pipeline:
     """3-stage pipelined prover over a list of devices.
 
-    devices: >= 3 devices (default: every visible card), partitioned
-    [S0 | S1 | S2...]: one device each for witness generation and QAP
-    division, the rest shard the MSMs. A device may repeat (a virtual mesh).
+    devices: >= 3 devices (default: every visible card), or a Mesh that one
+    process drives, partitioned [S0 | S1 | S2...]: one device each for
+    witness generation and QAP division, the rest shard the MSMs. A device
+    may repeat (a virtual mesh). A mesh across processes, or the default
+    once a process group is up, raises ValueError.
 
     witness_fn: callable mapping one proof request (any argument tuple) to a
     (num_wires, 16) canonical limb array or tensor; it runs with S0's device
@@ -50,6 +55,13 @@ class Groth16Pipeline:
     """
 
     def __init__(self, pk: groth16.ProvingKey, witness_fn, devices=None):
+        if (isinstance(devices, Mesh) and devices.rank is not None
+                or devices is None and in_process_group()):
+            raise ValueError("Groth16Pipeline is single-controller: one process drives every "
+                             "stage, so it does not run on a mesh across processes; give it "
+                             "devices of this process")
+        if isinstance(devices, Mesh):
+            devices = devices.devices
         devices = [_concrete(d) for d in (data_mesh().devices if devices is None else devices)]
         if len(devices) < 3:
             raise ValueError(f"the pipeline needs at least 3 devices, got {len(devices)}")

@@ -500,6 +500,57 @@ def test_pipeline_on_card_equals_prove_batch(dev):
 
 
 
+
+def test_process_mesh_of_one_nccl_rank(dev):
+    """init_multihost in this process as a world of one NCCL rank: data_mesh()
+    is the process mesh; the four-step at k = 10 (both ways) equals the local
+    K2 transform, msm_sharded (K6 bases, K3, the partials all-gathered by
+    NCCL, K1 reduction) equals the local K3 call, prove_sharded equals
+    prove at fixed (r, s) and verifies with r = s = None, and the pipeline
+    refuses the mesh."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from pob_tpu_torch.dist.mesh import data_mesh, gather, init_multihost
+    from pob_tpu_torch.dist.msm_sharded import msm_sharded
+    from pob_tpu_torch.dist.ntt_sharded import ntt_sharded, untranspose_host
+    from pob_tpu_torch.dist.pipeline import Groth16Pipeline
+    from pob_tpu_torch.dist.prove_sharded import prove_sharded, shard_pk
+    from pob_tpu_torch.prover import groth16
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    info = init_multihost(f"127.0.0.1:{port}", 1, 0, timeout=datetime.timedelta(seconds=60))
+    try:
+        assert info["process_index"] == 0 and info["global_devices"] == 1
+        assert dist.get_backend() == "nccl"
+        mesh = data_mesh()
+        assert mesh.rank == 0 and mesh.devices == (torch.device("cuda", 0),)
+        x = _elems((1 << 10,), 41).to(dev)
+        for inverse, local in ((False, ntt.ntt), (True, ntt.intt)):
+            c = ntt_sharded(mesh, x, 5, 5, inverse=inverse)
+            np.testing.assert_array_equal(untranspose_host(list(gather(mesh, c))),
+                                          local(x, 10).cpu().numpy())
+        for group, m in (("g1", 7), ("g2", 5)):
+            ops = curve.ops_for(group)
+            pts = msm.fixed_base_msm(group, _elems((m,), 42).to(dev))
+            sc = _elems((m,), 43).to(dev)
+            want = tuple(c[0] for c in msm.msm_batched(group, pts, sc[None]))
+            assert curve.to_affine_host(ops.name, msm_sharded(mesh, pts, sc)) == \
+                curve.to_affine_host(ops.name, want)
+        cs, pk, vk, W, pubs = _toy_keyed(dev)
+        spk = shard_pk(pk, mesh)
+        assert prove_sharded(spk, W[0], r=1234, s=5678) == groth16.prove(pk, W[0], 1234, 5678)
+        assert groth16.verify(vk, prove_sharded(spk, W[1]), pubs[1])
+        with pytest.raises(ValueError):
+            Groth16Pipeline(pk, lambda i: W[i])
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_k1_point_ops_on_card_match_plain(dev, group):
     """tree_reduce with K1's field ops (curve.k1_ops_for, the sharded MSM's
