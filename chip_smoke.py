@@ -7,6 +7,8 @@
     python3 chip_smoke.py --k5-k6          # phase 1, then K5's and K6's times alone
     python3 chip_smoke.py --dist           # phase 1, then the multi-device phase (7) alone
     python3 chip_smoke.py --multihost      # phase 1, then the mesh across processes (8) alone
+    python3 chip_smoke.py --prod           # phase 1, then the production ProofOfBurn (9) alone
+    python3 chip_smoke.py --setup-routes   # phase 1, then the PoB setup both ways (host, card)
 
 Phases (any failure exits non-zero; there is no CPU run):
   1. device: card name and power limit; build the CUDA kernels from
@@ -52,8 +54,10 @@ Phases (any failure exits non-zero; there is no CPU run):
      pob_tpu-format .npz and read back (the same plan, the same proofs).
   5. the ProofOfBurn path at bench.py's PoB size (TEST_CONFIG: 3,966,130
      constraints, domain 2^22, batch 4), with the Spend objects freed:
-     build_pob_cs, setup on the card (host scalars, K4, the key's affine
-     bases and the witness-MSM plan timed apart), a batch-4 witness made
+     build_pob_cs, setup on the card (the device scalars, K4, the key's
+     affine bases and the witness-MSM plan timed apart; L_j(tau) and the h
+     scalars held against the host ints at every position, u / v / w at
+     4,097 wires through the a, b1, l and ic scalars), a batch-4 witness made
      on the card from the fixture as bench.py makes it
      (proof_extra_commitment = pec0 + 1 + i, wire 1
      held against pob_expected_commitment), one warm-up prove stage by stage
@@ -65,11 +69,11 @@ Phases (any failure exits non-zero; there is no CPU run):
      path (POB_NO_PLAN=1), bit for bit. Then every kernel on this path's
      own inputs against its plain version, each row's numbers from one
      input: K1 on the h stage's product A.W x B.W (4 x 2^22); K2 on its
-     first transform, intt(A.W) (4 rows x 2^22, three passes; also one
-     random row at k = 20 and 21); K3 on the whole a-MSM of proof 0 and on
-     the B = 4 h- and b2-MSMs with scalars kept at 65,536 positions spread
+     first transform, intt(A.W) (4 rows x 2^22, three passes, row 0 against
+     the plain version; also one random row at k = 20 and 21); K3 on the
+     whole a-MSM of proof 0 and on the B = 4 h- and b2-MSMs with scalars kept at 65,536 positions spread
      over [0, m), the last included, and the full h-MSM timed beside its
-     bound; K4: the setup's query points at 65,536 positions per group
+     bound; K4: the setup's query points at 16,384 positions per group
      against the plain version over the setup's own scalars (kept from its
      call), and the K4 call over all of them timed; K5 per group at B = 4
      on a copy of the plan whose points are kept at 65,536 positions per
@@ -85,6 +89,9 @@ Phases (any failure exits non-zero; there is no CPU run):
      load_zkey (its vk equal to the setup's; its K6 calls timed), the
      batch-4 witnesses proved again with the same (r, s): the same proofs,
      which verify. One `pob {...}` JSON line.
+  9. (run last, every earlier object freed) the production ProofOfBurn,
+     PROD_CONFIG (13,341,537 constraints, domain 2^24), at batch 1: see
+     prod_phase. One `prod {...}` JSON line.
   6. (run after phase 4, before phase 5) the command line at full width on
      Spend, in-process through pob_tpu_torch.cli.main: setup (zkey, r1cs,
      vk), witness (wtns), prove (from the zkey), verify (0, and 1 with a
@@ -123,8 +130,8 @@ Phases (any failure exits non-zero; there is no CPU run):
 Each phase's end is printed with the script's elapsed time (`phases_s`).
 Then the kernel table as one JSON line (Spend rows with their launches on
 the main path, the cli phase, the dist phase, the multihost phase (summed
-over its ranks) and the PoB path, then the PoB rows), the card, and last,
-the device line.
+over its ranks), the PoB path and the PROD path, then the PoB rows, then
+the PROD rows), the card, and last, the device line.
 
 --k4 times K4 through entry points every tree of the port has
 (msm.window_table, msm.fixed_base_msm, groth16.setup_scalars), so a copy of
@@ -177,6 +184,11 @@ def phase_done(name: str):
     log(f"phase {name} done at {PHASES[name]:.1f} s")
 
 
+def mark(label: str):
+    """A line with the script's elapsed seconds at a step of a phase."""
+    log(f"at {time.perf_counter() - T_START:.1f} s: {label}")
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -191,14 +203,18 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def msm_bounds(group: str, B: int, m: int, nz: int):
-    """K3's bound for one call with nz nonzero digits: (ms, by) from the
-    current design's least count (a mixed add per digit, one weighted sum of
-    255 buckets per proof: 511 adds) and from the first port's count (a full
-    add per digit, 511 adds per window sum, 256 doublings per proof). Bytes:
-    points, scalars in, sums out."""
+def msm_bounds(group: str, B: int, m: int, nz: int, S: int = 32):
+    """K3's bound for one call with nz nonzero digits over bases of S
+    shifted windows: (ms, by) from the current design's least count (a
+    mixed add per digit, one weighted sum of 255 buckets per proof and
+    pass: 511 adds; between a proof's 32 / S passes, 8 S doublings and an
+    add) and from the first port's count (a full add per digit, 511 adds per
+    window sum, 256 doublings per proof). Bytes: points, scalars in, sums
+    out."""
     nbytes = m * 3 * COORD_BYTES[group] + B * m * 64 + B * 3 * COORD_BYTES[group]
-    return (bound(nbytes, nz * MADD_MULS[group] + B * 511 * ADD_MULS[group]),
+    npass = 32 // S
+    fold = B * (npass - 1) * (8 * S * DBL_MULS[group] + ADD_MULS[group])
+    return (bound(nbytes, nz * MADD_MULS[group] + B * npass * 511 * ADD_MULS[group] + fold),
             bound(nbytes, (nz + B * 32 * 511) * ADD_MULS[group] + B * 256 * DBL_MULS[group]))
 
 
@@ -581,33 +597,36 @@ def k6_setup_ms(rec) -> list:
 
 
 def k6_bases_ms(pk, calls) -> dict:
-    """{query: ms} of the key's K6 calls at (32, 8), which attach_bases
-    makes in MSM_QUERIES order."""
-    from pob_tpu_torch.prover.groth16 import MSM_QUERIES
+    """{query: ms} of the key's K6 calls at (S, 8), S its windows for the
+    query (groth16.bases_windows), which attach_bases makes in MSM_QUERIES
+    order."""
+    from pob_tpu_torch.prover.groth16 import MSM_QUERIES, bases_windows
 
-    calls = [c for c in calls if (c["windows"], c["dbl"]) == (32, 8)]
-    if [(c["group"], c["m"]) for c in calls] != [(g, getattr(pk, q)[0].shape[0])
-                                                for q, g in MSM_QUERIES]:
-        fail(f"the key's K6 calls at (32, 8) are not one per query: {calls}")
+    ws = bases_windows(pk)
+    calls = [c for c in calls if c["dbl"] == 8]
+    if [(c["group"], c["m"], c["windows"]) for c in calls] != [
+            (g, getattr(pk, q)[0].shape[0], ws[q]) for q, g in MSM_QUERIES]:
+        fail(f"the key's K6 calls at (S, 8) are not one per query: {calls}")
     return {q: c["ms"] for (q, _), c in zip(MSM_QUERIES, calls)}
 
 
 def bases_checks(pk, label, sample, call_ms=None):
-    """K6 at K3's (32, 8) on the key's own bases: pk.bases of each query
-    held against affine_bases_plain (tolerance 0) in all 32 windows at
-    `sample` positions spread over the query, the last included, and at up
-    to 16 infinite points of the a-query. The kernel's time per query is
-    call_ms[query] (the key's own call, CUDA events) or, without it, timed
-    here (3 calls); per group the sum beside k6_bound over all its points.
-    Returns one row per group."""
+    """K6 at K3's (S, 8) on the key's own bases, S its windows for each
+    query (groth16.bases_windows; 32 but for a key too large for that):
+    pk.bases of each query held against affine_bases_plain (tolerance 0) in
+    all S windows at `sample` positions spread over the query, the last
+    included, and at up to 16 infinite points of the a-query. The kernel's
+    time per query is call_ms[query] (the key's own call, CUDA events) or,
+    without it, timed here (3 calls); per group the sum beside the sum of
+    the queries' k6_bound. Returns one row per group."""
     import torch
 
     from pob_tpu_torch.prover import msm
-    from pob_tpu_torch.prover.groth16 import MSM_QUERIES
+    from pob_tpu_torch.prover.groth16 import MSM_QUERIES, bases_windows
 
-    acc = {}
+    acc, ws = {}, bases_windows(pk)
     for q, group in MSM_QUERIES:
-        pts = getattr(pk, q)
+        pts, S = getattr(pk, q), ws[q]
         m = pts[0].shape[0]
         pos = torch.from_numpy(spread_positions(m, min(sample, m))).to(pts[0].device)
         n_inf = 0
@@ -616,35 +635,39 @@ def bases_checks(pk, label, sample, call_ms=None):
             n_inf = int(inf.numel())
             pos = torch.unique(torch.cat([pos, inf]))
         sub = tuple(c[pos] for c in pts)
-        plain, pm = once_ms(lambda: msm.affine_bases_plain(group, sub))
-        got = pk.bases[q].view(msm.N_WINDOWS, m, -1)[:, pos].reshape(plain.shape)
-        exact(f"K6 {label} {q} bases (32, 8) at {pos.numel()} positions", got, plain)
-        ms = call_ms[q] if call_ms else cuda_ms(lambda: msm.affine_bases(group, pts), 3)
-        bms, _ = k6_bound(group, m, msm.N_WINDOWS, msm.WINDOW_BITS)
-        log(f"K6 {label} {q} bases (32, 8; {m} points) exact in all 32 windows at "
+        plain, pm = once_ms(lambda: msm.affine_bases_plain(group, sub, S))
+        got = pk.bases[q].view(S, m, -1)[:, pos].reshape(plain.shape)
+        exact(f"K6 {label} {q} bases ({S}, 8) at {pos.numel()} positions", got, plain)
+        ms = call_ms[q] if call_ms else cuda_ms(lambda: msm.affine_bases(group, pts, S), 3)
+        bms, _ = k6_bound(group, m, S, msm.WINDOW_BITS)
+        log(f"K6 {label} {q} bases ({S}, 8; {m} points) exact in all {S} windows at "
             f"{pos.numel()} positions ({n_inf} infinite): kernel_ms {ms:.3f} plain_ms {pm:.3f} "
             f"bound_ms {bms:.4f}, share {bms / ms:.4f}")
-        a = acc.setdefault(group, {"queries": [], "n": 0, "ms": 0.0, "plain_ms": 0.0,
-                                   "held": 0, "inf": 0})
-        a["queries"].append(q.split("_")[0])
+        a = acc.setdefault(group, {"queries": [], "S": set(), "n": 0, "ms": 0.0,
+                                   "plain_ms": 0.0, "bound_ms": 0.0, "held": 0, "inf": 0})
+        a["queries"].append(f"{q.split('_')[0]} ({S}, 8)")
+        a["S"].add(S)
         a["n"] += m
         a["ms"] += ms
         a["plain_ms"] += pm
+        a["bound_ms"] += bms
         a["held"] += int(pos.numel())
         a["inf"] += n_inf
         del plain, got, sub
     rows = []
     for group, a in acc.items():
-        bms, by = k6_bound(group, a["n"], msm.N_WINDOWS, msm.WINDOW_BITS)
         G = group.upper()
-        rows.append({"name": f"K6 bases (32, 8) ({label}: {G}, the key's "
-                             f"{'+'.join(a['queries'])} queries)", "key": "chains",
-                     "route": "cuda", "source": "pob_tpu_torch/csrc/msm.cuh",
+        shape = f"({a['S'].pop()}, 8)" if len(a["S"]) == 1 else "(S, 8)"
+        rows.append({"name": f"K6 bases {shape} ({label}: {G}, the key's "
+                             f"{'+'.join(q.split(' ')[0] for q in a['queries'])} queries)",
+                     "key": "chains", "route": "cuda", "source": "pob_tpu_torch/csrc/msm.cuh",
                      "replaces": "pob_tpu/prover/groth16.py:674", "max_abs_err": 0,
-                     "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": bms, "bound_by": by,
-                     "bound_share": bms / a["ms"], "library_ms": None,
-                     "shape": f"{a['n']} {G} points x 32 windows of 8 doublings",
-                     "plain_shape": f"{a['held']} of them ({a['inf']} infinite), all 32 "
+                     "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                     "bound_by": "operations", "bound_share": a["bound_ms"] / a["ms"],
+                     "library_ms": None,
+                     "shape": f"{a['n']} {G} points, windows of 8 doublings: "
+                              + ", ".join(a["queries"]),
+                     "plain_shape": f"{a['held']} of them ({a['inf']} infinite), all their "
                                     f"windows",
                      "timed": "the key's own calls" if call_ms else "3 calls per query"})
     return rows
@@ -695,11 +718,14 @@ def plain_path(fn):
 
 
 POB_BATCH = 4  # bench.py's BENCH_POB_BATCH
-POB_SAMPLE = 1 << 16  # positions kept in the sampled K3 and K4 checks
+POB_SAMPLE = 1 << 16  # positions kept in the sampled K3 and K5 checks
+POB_K4_SAMPLE = 1 << 14  # setup scalars per group in the K4 check (65,536 until phase 9 came)
 POB_K4_CHUNK = 1 << 14  # sampled K4 scalars per plain call (its G2 sums' memory)
+POB_K2_ROWS = 1  # rows of intt(A.W) held against the plain K2 (all 4 until phase 9 came)
 POB_K2_MORE = (20, 21)  # K2 also at these k, one random row each (2 and 3 passes)
 POB_K6_SAMPLE = 512  # points of each query in the sampled K6 checks (chains, bases)
 SPEND_K6_SAMPLE = 4096  # points of each query in the Spend K6 bases check
+SCALAR_SAMPLE = 4096  # wires (and PROD_CONFIG's L_j and h_j positions) of the setup route check
 
 
 def pob_batch(cfg, dev, batch: int):
@@ -773,32 +799,250 @@ def spread_positions(n: int, count: int):
 
 
 @contextlib.contextmanager
-def keep_setup_scalars(groth16, kept: list):
-    """Within the block, every groth16.setup_scalars result is also
-    appended to `kept` (setup computes them and drops them; the PoB phase's
-    K4 check needs them again)."""
-    real = groth16.setup_scalars
+def keep_setup_route(groth16, kept: dict, pos=None):
+    """Within the block, setup's device route leaves on the host what it
+    computes and drops: kept["toxic"]; kept["scalars"][query] = (positions,
+    rows) of setup_scalars_dev's canonical scalars; kept["lag"] = (positions,
+    rows) of L_j(tau) in Montgomery form (_lagrange_at_tau_mont_dev). Every
+    row, or with pos only the rows pos[name] (a sorted numpy array). And
+    kept["digits"][query] = (nonzero digits, nonzero scalars) over all its
+    scalars, for K4's bound."""
+    import numpy as np
 
-    def keep(cs, toxic):
-        kept.append(real(cs, toxic))
-        return kept[-1]
+    real_sc, real_lag = groth16.setup_scalars_dev, groth16._lagrange_at_tau_mont_dev
 
-    groth16.setup_scalars = keep
+    def take(name, t):
+        import torch
+
+        if pos is None:
+            return np.arange(t.shape[0]), t.cpu().numpy()
+        return pos[name], t[torch.from_numpy(pos[name]).to(t.device)].cpu().numpy()
+
+    def scalars(cs, toxic, device):
+        from pob_tpu_torch.prover import msm
+
+        k, sc, mats = real_sc(cs, toxic, device)
+        kept["toxic"] = toxic
+        kept["scalars"] = {q: take(q, t) for q, t in sc.items()}
+        digits = {q: msm.scalar_digits(t) != 0 for q, t in sc.items()}
+        kept["digits"] = {q: (int(d.sum()), int(d.any(-1).sum())) for q, d in digits.items()}
+        return k, sc, mats
+
+    def lag(k, tau, device):
+        out = real_lag(k, tau, device)
+        kept["lag"] = take("lag", out)
+        return out
+
+    groth16.setup_scalars_dev, groth16._lagrange_at_tau_mont_dev = scalars, lag
     try:
         yield
     finally:
-        groth16.setup_scalars = real
+        groth16.setup_scalars_dev, groth16._lagrange_at_tau_mont_dev = real_sc, real_lag
 
 
-def pob_phase(dev, card):
+def host_lagrange_at(k: int, tau: int, js, powers=None) -> list:
+    """L_j(tau) = w^j (tau^n - 1) / (n (tau - w^j)) as host ints at the
+    positions js (numpy), from `powers` (w^j for every j < n) if given."""
+    import numpy as np
+
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import groth16, ntt
+
+    n, w = 1 << k, ntt.domain_root(k)
+    c = (pow(tau, n, FR_MOD) - 1) * pow(n, FR_MOD - 2, FR_MOD) % FR_MOD
+    pws = [powers[j] if powers else pow(w, j, FR_MOD) for j in np.asarray(js).tolist()]
+    invs = groth16._batch_inv([(tau - x) % FR_MOD for x in pws])
+    return [x * c % FR_MOD * i % FR_MOD for x, i in zip(pws, invs)]
+
+
+def host_h_at(k: int, toxic, js, powers=None) -> list:
+    """The h basis x_j (tau^{2n} - 1) / (2 n delta (tau - x_j)), x_j = s w^j,
+    as host ints at the positions js, from `powers` (w^j for every j < n)
+    if given."""
+    import numpy as np
+
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import groth16, ntt
+
+    tau, delta = toxic[0], toxic[4]
+    n, w, s = 1 << k, ntt.domain_root(k), ntt.domain_root(k + 1)
+    c0 = ((pow(tau, 2 * n, FR_MOD) - 1) * pow(2 * n, FR_MOD - 2, FR_MOD)
+          * pow(delta, FR_MOD - 2, FR_MOD) % FR_MOD)
+    xs = [s * (powers[j] if powers else pow(w, j, FR_MOD)) % FR_MOD
+          for j in np.asarray(js).tolist()]
+    invs = groth16._batch_inv([(tau - x) % FR_MOD for x in xs])
+    return [x * c0 % FR_MOD * i % FR_MOD for x, i in zip(xs, invs)]
+
+
+def spread_wires(nw: int, count: int, npub: int):
+    """count wires spread over [0, nw), wire 0, the public wires and the last
+    one included."""
+    import numpy as np
+
+    return np.unique(np.concatenate([spread_positions(nw, count), np.arange(npub + 1)]))
+
+
+def host_setup_digests(k: int, path: str):
+    """--host-setup-digests: the host ints of L_j(tau) (Montgomery limbs)
+    and of the h basis (canonical limbs) at every position of the domain
+    2^k for TOXIC, as the SHA-256 of their limb bytes, written to `path` as
+    JSON with the seconds they took. Run in a process of its own (started
+    after the build), so these minutes of host ints overlap the card's work
+    of phases 2-8; the PoB phase compares the digests with the setup's
+    device values."""
+    import hashlib
+
+    from pob_tpu_torch.field import limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import ntt
+
+    t0 = time.perf_counter()
+    n, r_mont = 1 << k, (1 << 256) % FR_MOD
+    powers = ntt._powers(ntt.domain_root(k), n)
+    lag = [x * r_mont % FR_MOD for x in host_lagrange_at(k, TOXIC[0], range(n), powers)]
+    out = {"k": k, "lag_sha256": hashlib.sha256(limb.ints_to_limbs(lag).tobytes()).hexdigest()}
+    del lag
+    h = host_h_at(k, TOXIC, range(n), powers)
+    out["h_sha256"] = hashlib.sha256(limb.ints_to_limbs(h).tobytes()).hexdigest()
+    out["host_s"] = time.perf_counter() - t0
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def scalar_checks(label: str, cs, k: int, kept: dict, wires, digests=None) -> dict:
+    """The device setup route's values (kept by keep_setup_route) against
+    the host ints (tolerance 0): L_j(tau) and the h basis at every position
+    (their limb bytes against `digests`, host_setup_digests' SHA-256, when
+    given) or at the kept ones; u, v, w at the sampled wires through the
+    setup's a, b1, l and ic scalars (u, v, (beta u + alpha v + w) / delta
+    or / gamma), u_i(tau) summed on the host over the COO entries of those
+    wires with L_j at their rows. Returns the positions held and the host
+    seconds."""
+    import numpy as np
+
+    import hashlib
+
+    from pob_tpu_torch.field import limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.prover import groth16, ntt
+
+    t0 = time.perf_counter()
+    toxic = kept["toxic"]
+    tau, alpha, beta, gamma, delta = toxic
+    n, npub = 1 << k, cs.num_public
+    r_mont = (1 << 256) % FR_MOD
+    sc = kept["scalars"]
+
+    def rows_at(name, js):
+        pos, rows = sc[name] if name != "lag" else kept["lag"]
+        at = np.searchsorted(pos, js)
+        if not np.array_equal(pos[np.minimum(at, len(pos) - 1)], js):
+            fail(f"{label}: the setup route's {name} was not kept at every checked position")
+        return limb.limb_rows_to_ints(rows[at])
+
+    if digests is not None:
+        for name, rows, key in (("L_j(tau)", kept["lag"][1], "lag_sha256"),
+                                ("the h scalars", sc["h_query"][1], "h_sha256")):
+            if len(rows) != n or hashlib.sha256(rows.tobytes()).hexdigest() != digests[key]:
+                fail(f"{label}: {name} on the card differ from the host ints")
+        js = hjs = np.arange(n)
+    else:
+        js, hjs = kept["lag"][0], sc["h_query"][0]
+        if rows_at("lag", js) != [x * r_mont % FR_MOD for x in host_lagrange_at(k, tau, js)]:
+            fail(f"{label}: L_j(tau) on the card differs from the host ints")
+        if rows_at("h_query", hjs) != host_h_at(k, toxic, hjs):
+            fail(f"{label}: the h scalars on the card differ from the host ints")
+    powers = None
+
+    mats = groth16._indexed_matrices(cs)
+    sel = [np.isin(cols, wires) for _, cols, _, _ in mats]
+    need = np.unique(np.concatenate([m[0][s_] for m, s_ in zip(mats, sel)]))
+    if powers is None and len(need) > n // 16:
+        powers = ntt._powers(ntt.domain_root(k), n)
+    lag = dict(zip(need.tolist(), host_lagrange_at(k, tau, need, powers)))
+    del powers
+    uvw = []
+    for (rows, cols, cidx, pal), s_ in zip(mats, sel):
+        acc = dict.fromkeys(wires.tolist(), 0)
+        for j, i, c in zip(rows[s_].tolist(), cols[s_].tolist(), np.asarray(cidx)[s_].tolist()):
+            acc[i] += pal[c] * lag[j]
+        uvw.append({i: v % FR_MOD for i, v in acc.items()})
+    u, v, w = uvw
+    kv = {i: (beta * u[i] + alpha * v[i] + w[i]) % FR_MOD for i in u}
+    ginv, dinv = pow(gamma, FR_MOD - 2, FR_MOD), pow(delta, FR_MOD - 2, FR_MOD)
+    priv = wires[wires > npub]
+    pub = wires[wires <= npub]
+    for name, js_, want in (
+            ("a_query", wires, [u[i] for i in wires.tolist()]),
+            ("b1_query", wires, [v[i] for i in wires.tolist()]),
+            ("l_query", priv - npub - 1, [kv[i] * dinv % FR_MOD for i in priv.tolist()]),
+            ("ic", pub, [kv[i] * ginv % FR_MOD for i in pub.tolist()])):
+        if rows_at(name, js_) != want:
+            fail(f"{label}: the setup's {name} scalars on the card differ from the host ints")
+    nterms = sum(int(s_.sum()) for s_ in sel)
+    out = {"lag_positions": int(len(js)), "h_positions": int(len(hjs)),
+           "wires": int(len(wires)), "wire_terms": nterms, "rows": int(len(need)),
+           "host_s": time.perf_counter() - t0}
+    log(f"{label} setup route exact against the host ints: L_j at {out['lag_positions']} "
+        f"positions, h at {out['h_positions']}, u / v / w at {out['wires']} wires (0, the "
+        f"public ones and {cs.num_wires - 1} among them; {nterms} COO terms over "
+        f"{len(need)} rows); host {out['host_s']:.1f} s")
+    return out
+
+
+def k4_sampled_check(label, dev, pk, vk, kept, count: int, chunk: int) -> list:
+    """K4 on the setup's own scalars (kept by keep_setup_route): per group,
+    the key's query points at `count` positions spread over the group's
+    concatenated scalars (G1: a, b1, l, h, ic; G2: b2) against the plain
+    version, `chunk` scalars per plain call. Returns (group, names, n,
+    positions, plain ms) per group."""
+    import numpy as np
+
+    import torch
+
+    from pob_tpu_torch.prover import curve, groth16, msm
+
+    out = []
+    ic_pts = curve.g1_points_to_device(vk.ic, dev)
+    for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):
+        sizes = [len(getattr(pk, q)[0]) if q != "ic" else len(vk.ic) for q in names]
+        offs = np.cumsum([0] + sizes)
+        pos = spread_positions(int(offs[-1]), count)
+        q_of = np.searchsorted(offs, pos, side="right") - 1
+        got, sc = [], []
+        for qi, q in enumerate(names):
+            local = pos[q_of == qi] - offs[qi]
+            got.append(tuple(c[torch.from_numpy(local).to(dev)]
+                             for c in (ic_pts if q == "ic" else getattr(pk, q))))
+            kp, rows = kept["scalars"][q]
+            at = np.searchsorted(kp, local)
+            sc.append(torch.from_numpy(rows[at]))
+        got = tuple(torch.cat(cs_, 0) for cs_ in zip(*got))
+        sc = torch.cat(sc, 0).to(dev)
+        pm = 0.0
+        for o in range(0, len(pos), chunk):
+            c = slice(o, o + chunk)
+            plain, ms = once_ms(lambda: msm.fixed_base_plain(group, sc[c]))
+            pm += ms
+            same_points(f"K4 {label} {group} setup queries at positions [{o}, ...) of {len(pos)}",
+                        group, tuple(x[c] for x in got), plain)
+        out.append((group, names, int(offs[-1]), len(pos), pm))
+        del got, sc, plain
+    return out
+
+
+def pob_phase(dev, card, digests_helper):
     """The ProofOfBurn path at bench.py's size (TEST_CONFIG, domain 2^22,
     batch 4): build, setup, witness on the card, warm-up and timed proves,
     verification; launch counts; peak device memory per stage; then each
     kernel on this path's own inputs against its plain version: K1 and K2
     on the h stage's (4, 2^22) tensors, K2 also at k = 20, 21, K3 on the
     a-MSM of proof 0 and the B = 4 h- and b2-MSMs with scalars kept at
-    POB_SAMPLE positions, K4 on the setup's scalars at POB_SAMPLE positions
-    per group. Returns (the pob JSON object, kernel rows)."""
+    POB_SAMPLE positions, K4 on the setup's scalars at POB_K4_SAMPLE
+    positions per group; the device setup scalars against the host ints
+    (L_j and h_j at every position, u / v / w at SCALAR_SAMPLE wires).
+    Returns (the pob JSON object, kernel rows)."""
     import numpy as np
     import torch
 
@@ -832,10 +1076,11 @@ def pob_phase(dev, card):
     log(f"PoB build_pob_cs(TEST_CONFIG): {cs.num_constraints} constraints, {cs.num_wires} wires, "
         f"nnz {nnz}, palette {len(pal)}, {build_cs_s:.3f} s")
 
-    st, kept, k6_rec = {}, [], []
+    st, kept, k6_rec = {}, {}, []
     t0 = time.perf_counter()
-    # K4's check below reuses the scalars (~60 s of host ints); K6's calls are timed
-    with keep_setup_scalars(groth16, kept), k6_calls(msm, k6_rec):
+    # the setup route's values are checked and K4's check reuses its scalars
+    # (kept on the host); K6's calls are timed
+    with keep_setup_route(groth16, kept), k6_calls(msm, k6_rec):
         pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -852,13 +1097,18 @@ def pob_phase(dev, card):
     if pk.plan is None:
         fail("PoB setup did not give the key its witness-MSM plan")
     plan_gb = pk.plan.nbytes() / 1e9
-    log(f"PoB setup_s {setup_s:.3f} (host scalars {st['scalars_s']:.3f}, K4 {st['k4_s']:.3f}, "
+    log(f"PoB setup_s {setup_s:.3f} (scalars {st['scalars_s']:.3f}, K4 {st['k4_s']:.3f}, "
         f"attach_bases {st['bases_s']:.3f}, attach_msm_plan {st['plan_s']:.3f}, rest "
         f"{setup_s - sum(st.values()):.3f}); key on the card: shifted bases {key_gb:.3f} GB, "
         f"Jacobian queries {jac_gb:.3f} GB, matrices {mats_gb:.3f} GB, the plan {plan_gb:.3f} GB "
         f"(counts G1 {pk.plan.g1.counts.tolist()} G2 {pk.plan.g2.counts.tolist()}, M "
         f"{pk.plan.g1.pts.shape[1]} / {pk.plan.g2.pts.shape[1]})")
     peak("setup")
+    mark("PoB setup done")
+    digests = helper_result(digests_helper, 600, "PoB: the host setup scalars")
+    setup_route = scalar_checks("PoB", cs, k_pob, kept,
+                                spread_wires(cs.num_wires, SCALAR_SAMPLE, cs.num_public), digests)
+    setup_route["digests_host_s"] = digests["host_s"]
     log("PoB setup's K6 calls: " + ", ".join(
         f"({c['windows']}, {c['dbl']}) {c['m']} {c['group'].upper()} {c['ms']:.1f} ms"
         for c in k6_setup))
@@ -877,6 +1127,7 @@ def pob_phase(dev, card):
     peak("witness")
     after_witness = dict(_build.LAUNCHES)
 
+    mark("PoB witness done")
     rs = [(3000 + i, 4000 + i) for i in range(POB_BATCH)]
     torch.cuda.reset_peak_memory_stats()
     h = groth16.compute_h(pk.k, pk.mats, W)  # the warm-up prove, stage by stage
@@ -935,6 +1186,7 @@ def pob_phase(dev, card):
     log(f"PoB plain path (POB_NO_PLAN=1): the same {POB_BATCH} proofs bit for bit; h_s "
         f"{tm_plain['h_s']:.4f} msm_s {tm_plain['msm_s']:.4f} prove_s {plain_prove_s:.4f}, "
         f"peak {gb['plain prove']:.3f} GB")
+    mark("PoB proves, verify and the plain path done")
     wit_parts = witness_parts(TEST_CONFIG, cs, kw)  # after the counts: its launches are extra
     log("PoB witness again, by part (s): " + json.dumps(wit_parts))
     rows = []
@@ -960,9 +1212,10 @@ def pob_phase(dev, card):
                  "library_ms": None, "shape": f"{POB_BATCH} x 2^{pk.k} Fr pairs"})
     del kern, want, fa, fb
 
+    mark("PoB K1 check done")
     # K2 on the h stage's first transform, intt(A.W): 4 rows x 2^22, three
-    # passes, against the plain version row by row; and one random row at
-    # k = 20 (two passes) and 21 (three)
+    # passes, its first POB_K2_ROWS rows against the plain version; and one
+    # random row at k = 20 (two passes) and 21 (three)
     rand_elems = make_rand(dev, 20261)
     for k in POB_K2_MORE:
         x = rand_elems((1, 1 << k))
@@ -975,7 +1228,7 @@ def pob_phase(dev, card):
     bitrev = torch.from_numpy(ntt._bitrev(pk.k)).to(dev)
     kern = ntt.ntt_stages_cuda(aw, pk.k, roots, gather=True)
     k2_err, k2_pm = 0, 0.0
-    for r in range(POB_BATCH):
+    for r in range(POB_K2_ROWS):
         want, ms = once_ms(lambda: ntt._transform_plain(aw[r:r + 1].index_select(-2, bitrev),
                                                         pk.k, roots))
         k2_pm += ms
@@ -983,15 +1236,18 @@ def pob_phase(dev, card):
     k2_ms = cuda_ms(lambda: ntt.ntt_stages_cuda(aw, pk.k, roots, gather=True), 5)
     bms, by = bound(2 * POB_BATCH * n * 64 + n // 2 * 64, pk.k * POB_BATCH * n // 2)
     log(f"K2 PoB intt(A.W) stages ({POB_BATCH} rows x 2^{pk.k}, passes {ntt.ntt_passes(pk.k)}, "
-        f"with the gather) exact: kernel_ms {k2_ms:.4f} plain_ms {k2_pm:.1f} (row by row) "
+        f"with the gather) exact: kernel_ms {k2_ms:.4f} plain_ms {k2_pm:.1f} (rows "
+        f"0-{POB_K2_ROWS - 1}) "
         f"bound_ms {bms:.4f} ({by})")
     rows.append({"name": "K2 ntt (PoB: the h stage's intt(A.W), 3 passes)", "key": "ntt",
                  "route": "cuda", "source": "pob_tpu_torch/csrc/ntt.cu",
                  "replaces": "pob_tpu/prover/ntt.py:61", "max_abs_err": k2_err, "ms": k2_ms,
                  "plain_ms": k2_pm, "bound_ms": bms, "bound_by": by, "library_ms": None,
-                 "shape": f"{POB_BATCH} rows x 2^{pk.k}"})
+                 "shape": f"{POB_BATCH} rows x 2^{pk.k}",
+                 "plain_shape": f"rows 0-{POB_K2_ROWS - 1}"})
     del kern, want, aw, bw, x
 
+    mark("PoB K2 checks done")
     # K3 on this path's own inputs: the whole a-MSM of proof 0, and the
     # h- and b2-MSMs at B = 4 with scalars kept at POB_SAMPLE positions
     # spread over [0, m), the last included (the rest zeroed)
@@ -1035,6 +1291,7 @@ def pob_phase(dev, card):
                  "sampled_ms": h_sampled[0], "sampled_bound_ms": sbms})
     del h
 
+    mark("PoB K3 checks done")
     # K5 and K6 on this path's own inputs: K5 at B = 4 with the plan's
     # points kept at POB_SAMPLE positions per query; K6 on POB_K6_SAMPLE
     # full points of each query, timed over all of them
@@ -1051,34 +1308,22 @@ def pob_phase(dev, card):
         pinfo.update(i_)
     rows += prow
     rows += bases_checks(pk, "PoB", POB_K6_SAMPLE, call_ms=bases_ms)
+    mark("PoB K5 and K6 checks done")
     W = W.cpu()  # back on the card for the zkey round trip; off it for K4's plain sums
 
-    # K4 on the setup's own scalars (kept from its call), at
-    # POB_SAMPLE positions per group: the setup's query points there against
-    # the plain version; the kernel timed over every scalar of the group
+    # K4 on the setup's own scalars (kept from its call), at POB_K4_SAMPLE
+    # positions per group: the setup's query points there against the plain
+    # version (the plain G2 sums need ~4 GB per POB_K4_CHUNK); the kernel
+    # timed over every scalar of the group
     torch.cuda.empty_cache()
-    (_, sc_host, _), = kept
+    sc_host = {q: rows for q, (_, rows) in kept["scalars"].items()}
+    k4_plain = {g: (n4, npos, pm) for g, _, n4, npos, pm in
+                k4_sampled_check("PoB", dev, pk, vk, kept, POB_K4_SAMPLE, POB_K4_CHUNK)}
     del kept
-    ic_pts = curve.g1_points_to_device(vk.ic, dev)
     for group, names in (("g1", groth16.G1_QUERIES), ("g2", ("b2_query",))):
-        sizes = [len(sc_host[q]) for q in names]
-        offs = np.cumsum([0] + sizes)
-        n4 = int(offs[-1])
-        pos = spread_positions(n4, POB_SAMPLE)
-        q_of = np.searchsorted(offs, pos, side="right") - 1
-        got = []
-        for qi, q in enumerate(names):
-            local = torch.from_numpy(pos[q_of == qi] - offs[qi]).to(dev)
-            got.append(tuple(c[local] for c in (ic_pts if q == "ic" else getattr(pk, q))))
-        got = tuple(torch.cat(cs_, 0) for cs_ in zip(*got))
-        sc = limb.to_device(limb.ints_to_limbs([x for q in names for x in sc_host[q]]), dev)
-        sc_pos, pm4 = sc[torch.from_numpy(pos).to(dev)], 0.0
-        for o in range(0, len(pos), POB_K4_CHUNK):  # the plain G2 sums need ~4 GB per 2^14
-            c = slice(o, o + POB_K4_CHUNK)
-            plain, ms = once_ms(lambda: msm.fixed_base_plain(group, sc_pos[c]))
-            pm4 += ms
-            same_points(f"K4 PoB {group} setup queries at positions [{o}, ...) of {len(pos)}",
-                        group, tuple(x[c] for x in got), plain)
+        n4, npos, pm4 = k4_plain[group]
+        sc = torch.from_numpy(np.concatenate([sc_host[q] for q in names])).to(dev)
+        pos = range(npos)
         km4 = median_ms(lambda: msm.fixed_base_msm(group, sc))
         dig = msm.scalar_digits(sc) != 0
         nz4, nz_scalars = int(dig.sum()), int(dig.any(-1).sum())
@@ -1097,9 +1342,11 @@ def pob_phase(dev, card):
                      "shape": f"{n4} {group.upper()} scalars",
                      "plain_shape": f"{len(pos)} of them, spread over [0, {n4}), the last "
                                     f"included"})
-        del sc, sc_pos, got, plain, dig
-    del sc_host, ic_pts
+        del sc, dig
+    del sc_host
+    mark("PoB K4 checks done")
     big = pob_big_batch(cs, pk, vk, proofs, rs)
+    mark("PoB batch of 16 done")
     path, zk = pob_zkey_write(cs, pk, vk)
     del pk, pts
     gc.collect()
@@ -1126,6 +1373,7 @@ def pob_phase(dev, card):
            "k6_setup_calls": k6_setup,
            "launches_per_plain_prove": per_plain,
            "key_gb": {"bases": key_gb, "jacobian": jac_gb, "mats": mats_gb},
+           "setup_route_check": setup_route,
            "launches": counts, "launches_per_prove": per_prove}
     return out, rows
 
@@ -1255,6 +1503,467 @@ def pob_zkey_load(path, vk, W, proofs, rs, pubs) -> dict:
         f"{load_s:.3f} (peak {load_peak:.2f} GB); the loaded vk equals the setup's; "
         f"{len(again)} proofs equal the setup key's and verify")
     return out
+
+
+# The reference's production instantiation (circuits/main_proof_of_burn.circom:26)
+# as PROD_R1CS.json records it (scripts/prod_r1cs_report.py)
+PROD_R1CS = {"constraints": 13_341_537, "wires": 13_330_191, "nnz": 78_572_948,
+             "palette": 8_867, "k": 24}
+PROD_SAMPLE = 1 << 16  # positions kept in the PROD K3 and K5 checks
+PROD_K4_SAMPLE = 1 << 14  # setup scalars per group held against the plain K4
+PROD_RS = [(5000, 6000)]  # the PROD proof's (r, s)
+PROD_TABLES_DEADLINE_S = 600  # the host NTT tables' process is killed after this
+
+
+@contextlib.contextmanager
+def k4_timed(msm, rec: list):
+    """Within the block, every msm.fixed_base_msm call (K4, as setup makes
+    them) is timed with CUDA events: rec gets (group, n, start, end)."""
+    import torch
+
+    real = msm.fixed_base_msm
+
+    def timed_k4(group, scalars):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(group, scalars)
+        ev[1].record()
+        rec.append((group, int(scalars.shape[0]), *ev))
+        return out
+
+    msm.fixed_base_msm = timed_k4
+    try:
+        yield
+    finally:
+        msm.fixed_base_msm = real
+
+
+@contextlib.contextmanager
+def k3_timed(msm, rec: list):
+    """Within the block, every msm.msm_batched call (K3, as msm_stage makes
+    them) is timed with CUDA events: rec gets (group, m, start, end)."""
+    import torch
+
+    real = msm.msm_batched
+
+    def timed_k3(group, points, scalars, bases=None, timing=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(group, points, scalars, bases, timing)
+        ev[1].record()
+        rec.append((group, int(points[0].shape[0]), *ev))
+        return out
+
+    msm.msm_batched = timed_k3
+    try:
+        yield
+    finally:
+        msm.msm_batched = real
+
+
+def ntt_host_tables(k: int, path: str):
+    """The host twiddle and coset tables of prover/ntt.py at domain 2^k
+    (_root_powers(k, False) and _coset_powers(k, w_{2n}, False), as a
+    prove's first call on the CPU makes them), each timed, and the SHA-256 of
+    their bytes, written to `path` as JSON. Run in a process of its own
+    beside the PROD phase (started by prod_phase), so the minute of host
+    ints overlaps the card's work."""
+    import hashlib
+
+    from pob_tpu_torch.prover import ntt
+
+    out = {"k": k}
+    for name, fn in (("root_powers", lambda: ntt._root_powers(k, False)),
+                     ("coset_powers", lambda: ntt._coset_powers(k, ntt.domain_root(k + 1), False))):
+        t0 = time.perf_counter()
+        table = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_sha256"] = hashlib.sha256(table.tobytes()).hexdigest()
+        del table
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+CHILDREN = []  # helper processes of this script; killed when it exits
+
+
+def start_helper(flag: str, k: int):
+    """Start this script with `flag` k path (a helper mode that writes one
+    JSON object to path) in a process of its own: returns (process, path)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "chip_smoke", f"{flag.strip('-')}-{k}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(k), path],
+                            cwd=root)
+    CHILDREN.append(proc)
+    return proc, path
+
+
+def helper_result(helper, deadline_s: float, what: str) -> dict:
+    """Wait at most deadline_s for a start_helper process; its JSON object."""
+    proc, path = helper
+    try:
+        proc.wait(timeout=max(1.0, deadline_s))
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: the helper process did not finish in time")
+    if proc.returncode != 0:
+        fail(f"{what}: the helper process failed ({proc.returncode})")
+    with open(path) as f:
+        out = json.load(f)
+    os.remove(path)
+    return out
+
+
+def prod_phase(dev, card):
+    """The production ProofOfBurn (PROD_CONFIG: 13,341,537 constraints,
+    domain 2^24) on one card at batch 1, every earlier object freed:
+    build_pob_cs (counts held against PROD_R1CS); setup on the card (the
+    device scalars, K4, the K3 bases with the windows groth16's rule
+    chooses, the plan; timed apart, K4's and K6's calls by CUDA events);
+    the NTT's host tables at k = 24 timed in a process of their own and
+    held against the tables made on the card; the fixture widened to
+    PROD_CONFIG, its witness on the card twice (first and second call),
+    wire 1 held against pob_expected_commitment, check_witness over every
+    constraint on the host; one warm-up prove stage by stage and two timed
+    prove_batch calls (the h-MSM by CUDA events beside its bound); verify,
+    and public + 1 rejected; peak device memory through setup, the witness,
+    the h stage and the MSM stage; launch counters zeroed before the setup
+    and read after the timed proves. Then every kernel on this path's own
+    inputs against its plain version, tolerance 0: K1 on the h stage's A.W x
+    B.W, K2 on intt(A.W) (one row, 2^24), K3 on the h-MSM with scalars kept
+    at PROD_SAMPLE positions, K5 on the plan kept at PROD_SAMPLE positions
+    per query, K4 at PROD_K4_SAMPLE positions per group, K6 on the key's
+    bases at POB_K6_SAMPLE positions per query and the plan's chains of
+    POB_K6_SAMPLE full points; and the device scalars against the host ints
+    at SCALAR_SAMPLE positions of L_j and h_j and wires of u / v / w.
+    Returns (the prod JSON object, kernel rows)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pob_tpu_torch import _build
+    from pob_tpu_torch.circuits.proof_of_burn import PROD_CONFIG
+    from pob_tpu_torch.field import cuda_mont, limb
+    from pob_tpu_torch.field.ref import FR_MOD
+    from pob_tpu_torch.harness.inputs import (batch_stack, load_pob_input,
+                                              pob_expected_commitment, to_device,
+                                              widen_pob_input)
+    from pob_tpu_torch.prover import curve, groth16, msm, ntt
+    from pob_tpu_torch.r1cs.pob_circuit import build_pob_cs, pob_r1cs_witness
+    from pob_tpu_torch.r1cs.spend_circuit import assemble_witness
+
+    gb, out = {}, {}
+
+    def peak(stage):
+        torch.cuda.synchronize()
+        gb[stage] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"PROD peak device memory through {stage}: {gb[stage]:.3f} GB "
+            f"(allocated now {torch.cuda.memory_allocated() / 1e9:.3f} GB)")
+        torch.cuda.reset_peak_memory_stats()
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    ntt._on_device.cache_clear()  # the first PROD prove makes its tables, as a user's does
+    msm.window_table.cache_clear()  # setup builds K4's table, as a user's first setup does
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["free_at_start_gb"] = groth16.device_free_bytes(dev) / 1e9
+    log(f"PROD phase starts with {out['allocated_at_start_gb']:.3f} GB allocated, "
+        f"{out['free_at_start_gb']:.3f} GB free")
+    tables_helper = start_helper("--ntt-host-tables", PROD_R1CS["k"])
+    t0 = time.perf_counter()
+    cs = build_pob_cs(PROD_CONFIG)
+    build_s = time.perf_counter() - t0
+    (ra, _, _), (rb, _, _), (rc, _, _), pal = cs.matrices_indexed()
+    nw, npub = cs.num_wires, cs.num_public
+    k = groth16._next_pow2(cs.num_constraints + npub + 1)
+    n = 1 << k
+    r1cs = {"constraints": cs.num_constraints, "wires": nw,
+            "nnz": len(ra) + len(rb) + len(rc), "palette": len(pal), "k": k}
+    nnz = {"A": len(ra), "B": len(rb), "C": len(rc)}
+    del ra, rb, rc, pal
+    log(f"PROD build_pob_cs(PROD_CONFIG): {r1cs}, nnz {nnz}, {build_s:.3f} s")
+    if r1cs != PROD_R1CS:
+        fail(f"PROD R1CS counts {r1cs} differ from PROD_R1CS.json's {PROD_R1CS}")
+
+    # the setup route's values kept at the positions the checks read
+    wires = spread_wires(nw, SCALAR_SAMPLE, npub)
+    sizes = {"a_query": nw, "b1_query": nw, "b2_query": nw, "l_query": nw - npub - 1,
+             "h_query": n, "ic": npub + 1}
+    pos = {"lag": spread_positions(n, SCALAR_SAMPLE), "a_query": wires, "b1_query": wires,
+           "b2_query": wires, "l_query": wires[wires > npub] - npub - 1,
+           "h_query": spread_positions(n, SCALAR_SAMPLE), "ic": np.arange(npub + 1)}
+    for names in (groth16.G1_QUERIES, ("b2_query",)):  # and where K4's check reads
+        offs = np.cumsum([0] + [sizes[q] for q in names])
+        p4 = spread_positions(int(offs[-1]), PROD_K4_SAMPLE)
+        q_of = np.searchsorted(offs, p4, side="right") - 1
+        for qi, q in enumerate(names):
+            pos[q] = np.union1d(pos[q], p4[q_of == qi] - offs[qi]).astype(np.int64)
+
+    st, kept, k6_rec, k4_rec = {}, {}, [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with keep_setup_route(groth16, kept, pos), k6_calls(msm, k6_rec), k4_timed(msm, k4_rec):
+        pk, vk = groth16.setup(cs, rng=iter(TOXIC).__next__, device=dev, timings=st)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if pk.k != k or pk.plan is None:
+        fail(f"PROD setup: domain 2^{pk.k} or no plan")
+    windows = groth16.bases_windows(pk)
+    k6_setup = k6_setup_ms(k6_rec)
+    bases_ms = k6_bases_ms(pk, k6_setup)
+    k4_ms = [{"group": g, "n": m, "ms": a.elapsed_time(b)} for g, m, a, b in k4_rec]
+    del k6_rec, k4_rec
+    key_gb = {"bases": {q: t.numel() * t.element_size() / 1e9 for q, t in pk.bases.items()},
+              "jacobian": sum(c.numel() * c.element_size() for q, _ in groth16.MSM_QUERIES
+                              for c in getattr(pk, q)) / 1e9,
+              "mats": sum(t.numel() * t.element_size() for m in pk.mats for t in m) / 1e9,
+              "plan": pk.plan.nbytes() / 1e9}
+    key_gb["total"] = (sum(key_gb["bases"].values()) + key_gb["jacobian"] + key_gb["mats"]
+                       + key_gb["plan"])
+    log(f"PROD setup_s {setup_s:.3f} (scalars {st['scalars_s']:.3f}, K4 {st['k4_s']:.3f}, "
+        f"bases {st['bases_s']:.3f}, plan {st['plan_s']:.3f}); the K3 bases' windows "
+        f"{windows}; key GB {json.dumps(key_gb)}; K4 calls {k4_ms}; K6 calls " + ", ".join(
+            f"({c['windows']}, {c['dbl']}) {c['m']} {c['group'].upper()} {c['ms']:.1f} ms"
+            for c in k6_setup))
+    peak("setup")
+    mark("PROD setup done")
+
+    # the widened fixture's witness on the card, twice; the host check
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "pob_input.json")
+    with open(fix) as f:
+        raw = widen_pob_input(json.load(f), PROD_CONFIG)
+    expected = pob_expected_commitment(raw, PROD_CONFIG)
+    kw = to_device(batch_stack([load_pob_input(raw, PROD_CONFIG)]), dev)
+    W, witness_s = timed(lambda: assemble_witness(cs, pob_r1cs_witness(PROD_CONFIG, **kw)))
+    W2, witness2_s = timed(lambda: assemble_witness(cs, pob_r1cs_witness(PROD_CONFIG, **kw)))
+    if not torch.equal(W, W2):
+        fail("PROD: the second witness differs from the first")
+    del W2, kw
+    peak("witness")
+    wire1 = limb.limb_rows_to_ints(W[:, 1].cpu().numpy())[0]
+    if wire1 != expected:
+        fail("PROD witness wire 1 differs from pob_expected_commitment")
+    t0 = time.perf_counter()
+    w_ints = limb.limb_rows_to_ints(W[0].cpu().numpy())
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cs.check_witness(w_ints):
+        fail(f"PROD witness violates constraints {cs.failing_constraints(w_ints)}")
+    check_s = time.perf_counter() - t0
+    del w_ints
+    log(f"PROD witness_s {witness_s:.3f} (first call), {witness2_s:.3f} (second, the same "
+        f"witness); wire 1 == the expected commitment {expected}; check_witness over all "
+        f"{cs.num_constraints} constraints passed in {check_s:.3f} s (decoding "
+        f"{decode_s:.3f} s)")
+
+    mark("PROD witness and its host check done")
+    # one warm-up prove stage by stage, then two timed prove_batch calls
+    h = groth16.compute_h(pk.k, pk.mats, W)
+    peak("h stage")
+    sums = groth16.msm_stage(pk, W, h)
+    peak("MSM stage")
+    del sums
+    nz_h = int((msm.scalar_digits(h) != 0).sum())
+    del h
+    (h_bms, h_by), _ = msm_bounds("g1", 1, n, nz_h, windows["h_query"])
+    runs = []
+    for _ in range(2):
+        tm, rec = {}, []
+        with k3_timed(msm, rec):
+            t0 = time.perf_counter()
+            proofs = groth16.prove_batch(pk, W, rs=PROD_RS, timings=tm)
+            torch.cuda.synchronize()
+            tm["prove_s"] = time.perf_counter() - t0
+        tm["h_msm_ms"] = sum(a.elapsed_time(b) for g, m, a, b in rec if m == n)
+        tm["h_msm_bound_ms"] = h_bms
+        runs.append(tm)
+        log(f"PROD timed prove: h_s {tm['h_s']:.4f} msm_s {tm['msm_s']:.4f} h-MSM "
+            f"{tm['h_msm_ms']:.3f} ms (bound {h_bms:.3f}, {h_by}) prove_s "
+            f"{tm['prove_s']:.4f}, chunk {tm['chunk']}")
+    counts = dict(_build.LAUNCHES)
+    log(f"PROD launches (setup, witness x2, warm-up, 2 timed proves): {counts}")
+    for key in ("mont", "ntt", "msm", "fixed_base", "fixed_base_table", "chains",
+                "bitsum_g1", "bitsum_g2"):
+        if counts[key] <= 0:
+            fail(f"kernel {key} was not launched on the PROD path")
+    t0 = time.perf_counter()
+    if not groth16.verify(vk, proofs[0], [expected]):
+        fail("PROD proof does not verify")
+    if groth16.verify(vk, proofs[0], [(expected + 1) % FR_MOD]):
+        fail("PROD proof verifies with public + 1")
+    verify_s = time.perf_counter() - t0
+    log(f"PROD verify: the proof accepted, public + 1 rejected ({verify_s:.1f} s)")
+
+    mark("PROD proves and verify done")
+    # the NTT's host tables at k = 24 (their own process) against the card's
+    tables = {}
+    for name, fn in (("root_powers", lambda: ntt._root_powers_dev(k, False, dev)),
+                     ("coset_powers",
+                      lambda: ntt._coset_powers_dev(k, ntt.domain_root(k + 1), False, dev))):
+        t, tables[f"{name}_card_s"] = timed(fn)
+        tables[f"{name}_card_sha256"] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+        del t
+    host = helper_result(tables_helper, PROD_TABLES_DEADLINE_S - (time.perf_counter() - t_phase),
+                         "PROD: the host NTT tables")
+    for name in ("root_powers", "coset_powers"):
+        if host[f"{name}_sha256"] != tables[f"{name}_card_sha256"]:
+            fail(f"PROD: the {name} table made on the card differs from the host table")
+        tables[f"{name}_host_s"] = host[f"{name}_s"]
+    log(f"PROD NTT tables at k = {k}: made on the card equal to the host tables; seconds "
+        + json.dumps({k_: v for k_, v in tables.items() if k_.endswith("_s")}))
+
+    rows = []
+    gb_checks = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the setup route's values against the host ints at the kept positions
+    setup_route = scalar_checks("PROD", cs, k, kept, wires)
+
+    mark("PROD setup route check done")
+    # K1 on the h stage's A.W x B.W (2^24), plain in chunks of 2^20
+    (aw, ta), (bw, tb) = (timed(lambda: groth16.sparse_matvec_mont(m, W, n)) for m in pk.mats[:2])
+    fa, fb = aw.reshape(-1, limb.L), bw.reshape(-1, limb.L)
+    kern = cuda_mont.field_op(cuda_mont.MUL, limb.FR, fa, fb)
+    k1_pm = 0.0
+    for o in range(0, fa.shape[0], 1 << 20):
+        c = slice(o, o + (1 << 20))
+        want, ms = once_ms(lambda: limb.mont_mul_plain(limb.FR, fa[c], fb[c]))
+        k1_pm += ms
+        exact(f"K1 PROD A.W x B.W elements [{o}, ...)", kern[c], want)
+    k1_ms = cuda_ms(lambda: cuda_mont.field_op(cuda_mont.MUL, limb.FR, fa, fb), 10)
+    bms, by = bound(3 * 64 * fa.shape[0], fa.shape[0])
+    log(f"K1 PROD h-stage product (2^{k} Fr pairs) exact: kernel_ms {k1_ms:.4f} plain_ms "
+        f"{k1_pm:.1f} bound_ms {bms:.4f} ({by}); the mat-vecs alone A {ta:.4f} s, B {tb:.4f} s")
+    rows.append({"name": "K1 mont (PROD: Fr mul, the h stage's A.W x B.W)", "key": "mont",
+                 "route": "cuda", "source": "pob_tpu_torch/csrc/mont.cu",
+                 "replaces": "pob_tpu/field/pallas_mont.py:107", "max_abs_err": 0, "ms": k1_ms,
+                 "plain_ms": k1_pm, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "shape": f"1 x 2^{k} Fr pairs"})
+    del kern, want, fa, fb, bw
+    gb_checks["K1"] = torch.cuda.max_memory_allocated() / 1e9
+
+    mark("PROD K1 check done")
+    # K2 on intt(A.W): one row of 2^24, three passes, the inverse table made on the card
+    roots = ntt._table(ntt._root_powers, k, True, like=aw)
+    kern = ntt.ntt_stages_cuda(aw, k, roots, gather=True)
+    want, k2_pm = once_ms(lambda: ntt._transform_plain(
+        aw.index_select(-2, torch.from_numpy(ntt._bitrev(k)).to(dev)), k, roots))
+    exact(f"K2 PROD intt(A.W) at k = {k}", kern, want)
+    del kern, want
+    k2_ms = cuda_ms(lambda: ntt.ntt_stages_cuda(aw, k, roots, gather=True), 5)
+    bms, by = bound(2 * n * 64 + n // 2 * 64, k * n // 2)
+    log(f"K2 PROD intt(A.W) stages (1 row x 2^{k}, passes {ntt.ntt_passes(k)}, with the gather) "
+        f"exact: kernel_ms {k2_ms:.4f} plain_ms {k2_pm:.1f} bound_ms {bms:.4f} ({by})")
+    rows.append({"name": f"K2 ntt (PROD: the h stage's intt(A.W), {len(ntt.ntt_passes(k))} "
+                         f"passes)", "key": "ntt", "route": "cuda",
+                 "source": "pob_tpu_torch/csrc/ntt.cu", "replaces": "pob_tpu/prover/ntt.py:61",
+                 "max_abs_err": 0, "ms": k2_ms, "plain_ms": k2_pm, "bound_ms": bms,
+                 "bound_by": by, "library_ms": None, "shape": f"1 row x 2^{k}"})
+    del aw, roots
+    gb_checks["K2"] = torch.cuda.max_memory_allocated() / 1e9
+
+    mark("PROD K2 check done")
+    # K3 on the h-MSM at the key's windows: scalars kept at PROD_SAMPLE
+    # positions spread over [0, 2^24), the last included; the whole h-MSM timed
+    h = groth16.compute_h(pk.k, pk.mats, W)
+    keep = torch.from_numpy(spread_positions(n, PROD_SAMPLE)).to(dev)
+    hs = torch.zeros_like(h)
+    hs[:, keep] = h[:, keep]
+    S = windows["h_query"]
+    msm.msm_batched("g1", pk.h_query, hs, pk.bases["h_query"])
+    (kern, km3), (plain, pm3) = (
+        once_ms(lambda: msm.msm_batched("g1", pk.h_query, hs, pk.bases["h_query"])),
+        once_ms(lambda: msm.msm_plain(curve.ops_for("g1"), pk.h_query, hs)))
+    same_points(f"K3 PROD h-MSM sampled (S = {S})", "g1", kern, plain)
+    nz_s = int((msm.scalar_digits(hs) != 0).sum())
+    del hs, kern, plain
+    hm = cuda_ms(lambda: msm.msm_batched("g1", pk.h_query, h, pk.bases["h_query"]), 3)
+    (bms, by), (bms_full, _) = msm_bounds("g1", 1, n, nz_h, S)
+    (sbms, _), _ = msm_bounds("g1", 1, n, nz_s, S)
+    log(f"K3 PROD h-MSM (S = {S}: {32 // S} passes) sampled at {PROD_SAMPLE} positions exact "
+        f"(kernel_ms {km3:.3f} plain_ms {pm3:.3f}); whole B=1 m={n} ({nz_h} nonzero digits): "
+        f"kernel_ms {hm:.3f} bound_ms {bms:.3f} ({by}; {bms_full:.3f} with a full add per "
+        f"digit)")
+    rows.append({"name": f"K3 msm (PROD h-MSM: G1, B=1 x 2^{k}, S={S})", "key": "msm",
+                 "route": "cuda", "source": "pob_tpu_torch/csrc/msm.cuh",
+                 "replaces": "pob_tpu/prover/msm.py:92", "max_abs_err": 0, "ms": hm,
+                 "plain_ms": pm3, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "shape": f"B=1 x 2^{k} G1 points, bases of {S} shifted windows "
+                          f"({32 // S} passes)",
+                 "checked_on": f"the same h with scalars kept at {PROD_SAMPLE} positions (last "
+                               f"included), the rest 0: plain_ms is the plain version's, "
+                               f"sampled_ms the kernel's, sampled_bound_ms its bound",
+                 "sampled_ms": km3, "sampled_bound_ms": sbms})
+    del h
+    gb_checks["K3"] = torch.cuda.max_memory_allocated() / 1e9
+
+    mark("PROD K3 check done")
+    # K5 on the plan kept at PROD_SAMPLE positions per query; K6's chains
+    # on POB_K6_SAMPLE full points of each query; K6's bases at (S, 8)
+    keep_full = torch.from_numpy(spread_positions(
+        max(int(pk.plan.g1.counts[:, 1].max()), int(pk.plan.g2.counts[:, 1].max())),
+        POB_K6_SAMPLE)).to(dev)
+    pinfo = {}
+    for group, _, g in plan_groups(pk):
+        torch.cuda.empty_cache()
+        keep_pos = torch.from_numpy(spread_positions(g.pts.shape[1], PROD_SAMPLE)).to(dev)
+        r_, i_ = plan_checks(pk, W, "PROD", keep_pos=keep_pos, keep_full=keep_full,
+                             groups=(group,))
+        rows += r_
+        pinfo.update(i_)
+    gb_checks["K5"] = torch.cuda.max_memory_allocated() / 1e9
+    mark("PROD K5 and K6 chains checks done")
+    rows += bases_checks(pk, "PROD", POB_K6_SAMPLE, call_ms=bases_ms)
+    mark("PROD K6 bases check done")
+
+    # K4 at PROD_K4_SAMPLE positions per group of the setup's own scalars;
+    # its time from the setup's own calls
+    torch.cuda.empty_cache()
+    W = W.cpu()
+    for (group, names, n4, npos, pm4), call in zip(
+            k4_sampled_check("PROD", dev, pk, vk, kept, PROD_K4_SAMPLE, PROD_K4_SAMPLE),
+            k4_ms):
+        nz4 = sum(kept["digits"][q][0] for q in names)
+        nz_scalars = sum(kept["digits"][q][1] for q in names)
+        if call["group"] != group or call["n"] != n4:
+            fail(f"PROD: K4's setup calls are not one per group: {k4_ms}")
+        nbytes = n4 * 64 + n4 * 3 * COORD_BYTES[group] + 8192 * 2 * COORD_BYTES[group] // 2
+        bms, by = bound(nbytes, (nz4 - nz_scalars) * MADD_MULS[group])
+        bms_full, _ = bound(nbytes, nz4 * ADD_MULS[group])
+        log(f"K4 PROD {group} setup queries {'+'.join(names)} (n={n4}, {nz4} nonzero digits): "
+            f"exact at {npos} positions (plain_ms {pm4:.3f}); the setup's call {call['ms']:.3f} "
+            f"ms bound_ms {bms:.3f} ({by}) {bms_full:.3f} (a full add per digit)")
+        rows.append({"name": f"K4 fixed_base (PROD: {group.upper()} window, the setup's "
+                             f"{group.upper()} queries)", "key": "fixed_base", "route": "cuda",
+                     "source": "pob_tpu_torch/csrc/fixed_base.cu",
+                     "replaces": "pob_tpu/prover/msm.py:248", "max_abs_err": 0,
+                     "ms": call["ms"], "plain_ms": pm4, "bound_ms": bms, "bound_by": by,
+                     "bound_ms_full_adds": bms_full, "library_ms": None,
+                     "shape": f"{n4} {group.upper()} scalars (the setup's call)",
+                     "plain_shape": f"{npos} of them, spread over [0, {n4}), the last "
+                                    f"included"})
+    del kept
+    out.update({"r1cs": r1cs, "nnz": nnz, "build_s": build_s, "setup_s": setup_s,
+                **{f"setup_{k_}": v for k_, v in st.items()}, "windows": windows,
+                "key_gb": key_gb, "k4_calls": k4_ms, "k6_setup_calls": k6_setup,
+                "ntt_tables": tables, "witness_s": witness_s, "witness2_s": witness2_s,
+                "commitment": str(expected), "check_witness_s": check_s,
+                "witness_decode_s": decode_s, "timed_proves": runs, "verify": True,
+                "reject_public_plus_one": True, "verify_s": verify_s, "peak_gb": gb,
+                "peak_gb_checks": gb_checks, "plan": pinfo, "setup_route_check": setup_route,
+                "launches": counts, "phase_s": time.perf_counter() - t_phase})
+    for row in rows:
+        row["launches"] = counts[row.pop("key")]
+    return out, rows
 
 
 def cli_phase(dev) -> dict:
@@ -1446,6 +2155,47 @@ def k5_k6_mode(dev, card) -> dict:
     del kw
     out["pob"] = k5_k6_key("pob", cs, W, [(3000 + i, 4000 + i) for i in range(POB_BATCH)],
                            pubs, zkey=True)
+    return out
+
+
+def setup_routes_mode(dev, card) -> dict:
+    """--setup-routes: the PoB key (TEST_CONFIG, 2^22) set up twice in one
+    process with the same toxic waste, through groth16.setup_host (the
+    host-int scalars) and through groth16.setup (the device scalars), each
+    timed by part (synchronized); the two keys must be equal (the SHA-256 of
+    their query points, matrices and vk). The host-int key is freed before
+    the second setup."""
+    import hashlib
+
+    import torch
+
+    from pob_tpu_torch.circuits.proof_of_burn import TEST_CONFIG
+    from pob_tpu_torch.prover import groth16
+    from pob_tpu_torch.r1cs.pob_circuit import build_pob_cs
+
+    cs = build_pob_cs(TEST_CONFIG)
+    out = {"card": card}
+    digests = {}
+    for name, fn in (("setup_host", groth16.setup_host), ("setup", groth16.setup)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = {}
+        (pk, vk), setup_s = timed(lambda: fn(cs, rng=iter(TOXIC).__next__, device=dev,
+                                             timings=st))
+        h = hashlib.sha256(repr((vk.ic, vk.gamma2, vk.delta2, pk.alpha1)).encode())
+        for q, _ in groth16.MSM_QUERIES:
+            for c in getattr(pk, q):
+                h.update(c.cpu().numpy().tobytes())
+        for m in pk.mats:
+            for t in m:
+                h.update(t.cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+        out[name] = {"setup_s": setup_s, **st}
+        log(f"setup routes: {name} setup_s {setup_s:.3f} " + json.dumps(st))
+        del pk, vk
+    if digests["setup_host"] != digests["setup"]:
+        fail("setup routes: setup and setup_host gave different keys")
+    out["same_key"] = True
     return out
 
 
@@ -1826,6 +2576,12 @@ def main():
         i = sys.argv.index("--multihost-rank")
         multihost_rank(*(int(a) for a in sys.argv[i + 1:i + 4]), sys.argv[i + 4])
         return
+    for flag, helper in (("--ntt-host-tables", ntt_host_tables),  # started by prod_phase
+                         ("--host-setup-digests", host_setup_digests)):  # started by main
+        if flag in sys.argv[1:]:
+            i = sys.argv.index(flag)
+            helper(int(sys.argv[i + 1]), sys.argv[i + 2])
+            return
     try:
         from pob_tpu_torch import _build
     except ImportError as e:
@@ -1880,6 +2636,19 @@ def main():
         h = groth16.compute_h(pk.k, pk.mats, W)
         log("dist " + json.dumps(dist_phase(dev, card, pk, vk, W, h, rs, proofs, pubs)))
         return
+    if "--setup-routes" in sys.argv[1:]:
+        log("setup_routes " + json.dumps(setup_routes_mode(dev, card)))
+        return
+    if "--prod" in sys.argv[1:]:
+        prod, prod_rows = prod_phase(dev, card)
+        log("prod " + json.dumps(prod))
+        phase_done("9 PROD")
+        log(json.dumps({"kernels": prod_rows}))
+        log(f"{card}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                "kind": torch.cuda.get_device_name(0),
+                                                "count": torch.cuda.device_count()}}))
+        return
     if "--multihost" in sys.argv[1:]:
         cs = build_spend_cs()
         args, pubs = spend_batch(dev, MULTIHOST_PROOFS)
@@ -1891,6 +2660,8 @@ def main():
         return
 
     rand_elems = make_rand(dev, 20260)
+    # phase 5's host ints of L_j(tau) and the h basis at 2^22, beside phases 2-8
+    pob_digests = None if "--k4" in sys.argv[1:] else start_helper("--host-setup-digests", 22)
 
     def build_table(group):
         """K4's window table built anew, as setup's first call builds it."""
@@ -2314,16 +3085,23 @@ def main():
     phase_done("8 multihost")
 
     # ---------------- the ProofOfBurn path: TEST_CONFIG, 2^22, batch 4 ----------------
-    pob, pob_rows = pob_phase(dev, card)
+    pob, pob_rows = pob_phase(dev, card, pob_digests)
+    log("pob " + json.dumps(pob))
+    phase_done("5 ProofOfBurn")
+
+    # ---------------- the production ProofOfBurn: PROD_CONFIG, 2^24, batch 1 ----------------
+    gc.collect()
+    prod, prod_rows = prod_phase(dev, card)
     for row in rows:
         key = row.pop("key")
         row["launches_cli"] = cli["launches"][key]
         row["launches_pob"] = pob["launches"][key]
         row["launches_per_pob_prove"] = pob["launches_per_prove"][key]
-    log("pob " + json.dumps(pob))
-    phase_done("5 ProofOfBurn")
+        row["launches_prod"] = prod["launches"][key]
+    log("prod " + json.dumps(prod))
+    phase_done("9 PROD")
     log("phases_s " + json.dumps(PHASES))
-    log(json.dumps({"kernels": rows + pob_rows}))
+    log(json.dumps({"kernels": rows + pob_rows + prod_rows}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
@@ -2331,4 +3109,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+            child.wait()

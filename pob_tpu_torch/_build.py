@@ -47,11 +47,12 @@ _ARGTYPES = {
     "mont.cu": {"pob_field_op": [_I, _I, _P, _P, _P, _L, _P]},
     "ntt.cu": {"pob_ntt_pass": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
     **{src: {
-        "pob_msm_hist": [_P, _I, _I, _P, _P, _P],
+        "pob_msm_hist": [_P, _I, _I, _I, _P, _P, _P],
         "pob_msm_layout": [_P, _I, _I, ctypes.POINTER(_I), _P, _P, _P],
-        "pob_msm_scatter": [_P, _I, _I, _P, _P, _P, _P],
+        "pob_msm_scatter": [_P, _I, _I, _I, _P, _P, _P, _P],
         "pob_msm_bucket_sum": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
-        "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P],
+        "pob_msm_reduce": [_P, _P, _I, _P, _P, _P, _P, _P],
+        "pob_msm_fold": [_P, _I, _I, _I, _P, _P, _P, _P],
         "pob_msm_shifted_bases": [_P, _P, _P, _L, _I, _I, _I, _L, _L, _P, _P, _P],
         "pob_msm_max_levels": [],
     } for src in ("msm_g1.cu", "msm_g2.cu")},

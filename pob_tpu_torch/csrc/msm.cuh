@@ -19,20 +19,27 @@
 // digit of a proof, whatever its window, goes to one of 255 buckets (digit
 // value d) of that proof. The per-window sums and the Horner fold of the
 // first port (248 dependent doublings per proof, 35-45% of a witness MSM)
-// are gone. Every size is fixed from B and m before the first launch, so
-// the host reads nothing back between launches:
-//  1. hist: one block per (proof, 256 scalars) counts its digits per bucket
-//     in shared memory with warp-aggregated increments (__match_any_sync:
-//     one shared atomic per distinct digit in a warp, so the bit witnesses'
-//     hot bucket, digit 1, costs one atomic per warp), keeps the histogram
-//     and adds it to the proof's counts: one global atomic per block and
-//     bucket.
+// are gone. A key too large for 32 windows per point (the production
+// ProofOfBurn's h query at 2^24) keeps S of them, S dividing 32: window w
+// of point i then adds base (w mod S) m + i into the 255 buckets of pass
+// w div S, so a proof has 32 / S passes (the keys below are (proof, pass)
+// pairs), and a sixth step folds the passes' weighted sums Horner-style,
+// with 8 S doublings between them: one key space for every pass keeps the
+// launches of S = 32 and adds one, where a launch per pass would repeat
+// all of them. Every size is fixed from B, m and S before the first
+// launch, so the host reads nothing back between launches:
+//  1. hist: one block per (proof, pass, 256 (32 / S) scalars), 32 digits
+//     a thread, counts its digits per bucket in shared memory with
+//     warp-aggregated increments (__match_any_sync: one shared atomic per
+//     distinct digit in a warp, so the bit witnesses' hot bucket, digit 1,
+//     costs one atomic per warp), keeps the histogram and adds it to the
+//     key's counts: one global atomic per block and bucket.
 //  2. layout: one block scans the counts into the bucket starts and, for
 //     every reduction level l, the segment starts (a bucket of c entries
 //     has ceil(c / D_l) segments at level l).
 //  3. scatter: each block claims its run in every bucket with one global
 //     atomic, sorts its digits by bucket in shared memory, and writes each
-//     run contiguously (table index w m + i).
+//     run contiguously (table index (w mod S) m + i).
 //  4. bucket sum, one launch per level: a thread sums a segment of at most
 //     SEG entries of one bucket (level 0: mixed adds from the table; later
 //     levels: full adds of the level before's partials), so the longest
@@ -41,6 +48,8 @@
 //     running sum over its 8 buckets d = 8c + j, L_c = sum_j j B_d and the
 //     total T_c; suffix sums U_c = sum_{c' >= c} T_c' across the threads
 //     give sum_d d B_d = sum_c L_c + 8 sum_{c >= 1} U_c, summed as a tree.
+//     Per (proof, pass) when S < 32.
+//  6. fold (S < 32 only): one thread per proof, sum_p 2^(8 S p) V_p.
 #include "curve.cuh"
 
 using namespace pob;
@@ -74,24 +83,43 @@ __device__ __forceinline__ int digit(const uint32_t* w, int win) {
   return (w[win >> 2] >> (8 * (win & 3))) & 0xFF;
 }
 
+// The digits of a block of hist and scatter: block (b np + p) chunks + c
+// takes pass p (windows p S .. p S + S - 1, np = 32 / S passes) of proof b
+// over the np HT scalars of chunk c, thread t the scalars (c np + r) HT + t
+// for r < np: np S = 32 digits per thread at any S. Its buckets are those
+// of key b np + p; at S = 32 (one pass) this is one proof's 256 scalars.
+struct BlockDigits {
+  int key, b, p, c;
+  __device__ BlockDigits(int chunks, int np) {
+    key = blockIdx.x / chunks;
+    b = key / np;
+    p = key - b * np;
+    c = blockIdx.x - key * chunks;
+  }
+};
+
 __global__ void __launch_bounds__(HT) hist_kernel(const int32_t* __restrict__ s, int m,
-                                                  int chunks, int* __restrict__ blockhist,
+                                                  int chunks, int S,
+                                                  int* __restrict__ blockhist,
                                                   int* __restrict__ counts) {
   __shared__ int hist[NBKT];
-  const int blk = blockIdx.x, b = blk / chunks, lane = threadIdx.x & 31;
+  const int np = NWIN / S, lane = threadIdx.x & 31;
+  const BlockDigits bd(chunks, np);
   hist[threadIdx.x] = 0;
   __syncthreads();
-  uint32_t w[8];
-  load_scalar(s, m, b, (blk - b * chunks) * HT + threadIdx.x, w);
-  for (int win = 0; win < NWIN; win++) {
-    const int d = digit(w, win);
-    const unsigned peers = __match_any_sync(FULL, d);
-    if (d && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+  for (int r = 0; r < np; r++) {
+    uint32_t w[8];
+    load_scalar(s, m, bd.b, (bd.c * np + r) * HT + threadIdx.x, w);
+    for (int win = bd.p * S; win < bd.p * S + S; win++) {
+      const int d = digit(w, win);
+      const unsigned peers = __match_any_sync(FULL, d);
+      if (d && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+    }
   }
   __syncthreads();
   const int v = hist[threadIdx.x];
-  blockhist[(long long)blk * NBKT + threadIdx.x] = v;
-  if (v) atomicAdd(&counts[b * NBKT + threadIdx.x], v);
+  blockhist[(long long)blockIdx.x * NBKT + threadIdx.x] = v;
+  if (v) atomicAdd(&counts[bd.key * NBKT + threadIdx.x], v);
 }
 
 // Exclusive prefix sum of one int per thread over the block (at most 32
@@ -162,7 +190,7 @@ __device__ __forceinline__ int find_run(const int* P, int n, int g) {
 }
 
 __global__ void __launch_bounds__(HT) scatter_kernel(const int32_t* __restrict__ s, int m,
-                                                     int chunks,
+                                                     int chunks, int S,
                                                      const int* __restrict__ blockhist,
                                                      int* __restrict__ cursor,
                                                      int* __restrict__ idx) {
@@ -171,26 +199,30 @@ __global__ void __launch_bounds__(HT) scatter_kernel(const int32_t* __restrict__
   __shared__ int fill[NBKT];
   __shared__ int gpos[NBKT];        // start of each run in idx
   __shared__ int warp_tot[32];
-  const int blk = blockIdx.x, b = blk / chunks, lane = threadIdx.x & 31;
-  const int v = blockhist[(long long)blk * NBKT + threadIdx.x];
-  gpos[threadIdx.x] = v ? atomicAdd(&cursor[b * NBKT + threadIdx.x], v) : 0;
+  const int np = NWIN / S, lane = threadIdx.x & 31;
+  const BlockDigits bd(chunks, np);
+  const int v = blockhist[(long long)blockIdx.x * NBKT + threadIdx.x];
+  gpos[threadIdx.x] = v ? atomicAdd(&cursor[bd.key * NBKT + threadIdx.x], v) : 0;
   const int ex = block_exclusive_scan(v, warp_tot);
   loc[threadIdx.x] = ex;
   fill[threadIdx.x] = ex;
   if (threadIdx.x == HT - 1) loc[NBKT] = ex + v;
   __syncthreads();
-  const int i = (blk - b * chunks) * HT + threadIdx.x;
-  uint32_t w[8];
-  load_scalar(s, m, b, i, w);
-  for (int win = 0; win < NWIN; win++) {
-    const int d = digit(w, win);
-    const unsigned peers = __match_any_sync(FULL, d);
-    if (d) {
-      const int leader = __ffs(peers) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(&fill[d], __popc(peers));
-      base = __shfl_sync(peers, base, leader);
-      stage[base + __popc(peers & ((1u << lane) - 1))] = win * m + i;
+  for (int r = 0; r < np; r++) {
+    const int i = (bd.c * np + r) * HT + threadIdx.x;
+    uint32_t w[8];
+    load_scalar(s, m, bd.b, i, w);
+    for (int win = bd.p * S; win < bd.p * S + S; win++) {
+      const int d = digit(w, win);
+      const unsigned peers = __match_any_sync(FULL, d);
+      if (d) {
+        const int leader = __ffs(peers) - 1;
+        int base = 0;
+        if (lane == leader) base = atomicAdd(&fill[d], __popc(peers));
+        base = __shfl_sync(peers, base, leader);
+        // the base of window win of point i: 2^(8 (win - p S)) P_i
+        stage[base + __popc(peers & ((1u << lane) - 1))] = (win - bd.p * S) * m + i;
+      }
     }
   }
   __syncthreads();
@@ -247,15 +279,17 @@ bucket_sum_kernel(const int32_t* __restrict__ in, const int* __restrict__ Pin,
   jac_storep(out, g, jac_loadp<T>(sum, 0));
 }
 
-// Block b (one warp): out[b] = sum_d d bucket(b, d). A bucket whose key has
+// Block b (one warp): out[b] = sum_d d bucket(b, d), for b a key's (proof,
+// pass); written to oX, oY, oZ, or packed to sums when it is not null (the
+// passes' weighted sums, which fold_kernel sums). A bucket whose key has
 // one partial at the last level holds its sum at PL[key]; an empty one holds
 // none. Every add takes one operand from registers, which it consumes, and
 // the other from memory (Packed): the thread's running sum and weighted
 // sum have homes in shared memory, so no more than one G2 point is live at
 // a time (__syncwarp, a memory barrier, makes each read come from there).
 __global__ void __launch_bounds__(NCH)
-reduce_kernel(const int32_t* __restrict__ parts, const int* __restrict__ PL, int32_t* oX,
-              int32_t* oY, int32_t* oZ) {
+reduce_kernel(const int32_t* __restrict__ parts, const int* __restrict__ PL,
+              int32_t* __restrict__ sums, int32_t* oX, int32_t* oY, int32_t* oZ) {
   static_assert(NCH == 32, "one warp per proof");
   __shared__ uint4 sm4[2 * NCH * 3 * PW / 4];
   const int c = threadIdx.x;
@@ -293,7 +327,29 @@ reduce_kernel(const int32_t* __restrict__ parts, const int* __restrict__ PL, int
     if (c < o) v = jac_add_src(v, Packed<T>{pub + (c + o) * 3 * PW});
     __syncwarp();
   }
-  if (c == 0) jac_store(oX, oY, oZ, blockIdx.x, v);
+  if (c == 0) {
+    if (sums)
+      jac_storep(sums, blockIdx.x, v);
+    else
+      jac_store(oX, oY, oZ, blockIdx.x, v);
+  }
+}
+
+// One thread per proof b: out[b] = sum_p 2^(8 S p) V[b, p] over its np
+// passes' weighted sums V (packed), Horner-style from the top pass: 8 S
+// doublings, then the next pass added from memory (Packed). As pob_tpu's
+// pippenger_msm folds its windows (msm.py:92), with S windows to a pass.
+__global__ void __launch_bounds__(32)
+fold_kernel(const int32_t* __restrict__ sums, int B, int np, int S, int32_t* oX, int32_t* oY,
+            int32_t* oZ) {
+  const int b = blockIdx.x * 32 + threadIdx.x;
+  if (b >= B) return;
+  Jac<T> acc = jac_loadp<T>(sums, (long long)b * np + np - 1);
+  for (int p = np - 2; p >= 0; p--) {
+    for (int k = 0; k < 8 * S; k++) acc = jac_double(acc);
+    acc = jac_add_src(acc, Packed<T>{sums + ((long long)b * np + p) * 3 * PW});
+  }
+  jac_store(oX, oY, oZ, b, acc);
 }
 
 // K6: Jacobian P_i (16-bit-limb layout) -> packed affine 2^(dbl w) P_i for
@@ -367,11 +423,18 @@ static inline unsigned blocks_for(long long n, int t) { return (unsigned)((n + t
 
 #define POB_CHECK() return (int)cudaGetLastError()
 
-extern "C" int pob_msm_hist(const void* s, int B, int m, void* blockhist, void* counts,
+// S: the shifted windows of the bases (a divisor of 32); 32 / S passes.
+static inline int digit_chunks(int m, int S) {
+  const int per = HT * (NWIN / S);
+  return (m + per - 1) / per;
+}
+
+extern "C" int pob_msm_hist(const void* s, int B, int m, int S, void* blockhist, void* counts,
                             void* stream) {
-  const int chunks = (m + HT - 1) / HT;
-  hist_kernel<<<B * chunks, HT, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)s, m, chunks, (int*)blockhist, (int*)counts);
+  if (S < 1 || NWIN % S) return (int)cudaErrorInvalidValue;
+  const int chunks = digit_chunks(m, S);
+  hist_kernel<<<B * (NWIN / S) * chunks, HT, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)s, m, chunks, S, (int*)blockhist, (int*)counts);
   POB_CHECK();
 }
 
@@ -388,11 +451,12 @@ extern "C" int pob_msm_layout(const void* counts, int n_keys, int n_levels,
   POB_CHECK();
 }
 
-extern "C" int pob_msm_scatter(const void* s, int B, int m, const void* blockhist,
+extern "C" int pob_msm_scatter(const void* s, int B, int m, int S, const void* blockhist,
                                void* cursor, void* idx, void* stream) {
-  const int chunks = (m + HT - 1) / HT;
-  scatter_kernel<<<B * chunks, HT, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)s, m, chunks, (const int*)blockhist, (int*)cursor, (int*)idx);
+  if (S < 1 || NWIN % S) return (int)cudaErrorInvalidValue;
+  const int chunks = digit_chunks(m, S);
+  scatter_kernel<<<B * (NWIN / S) * chunks, HT, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)s, m, chunks, S, (const int*)blockhist, (int*)cursor, (int*)idx);
   POB_CHECK();
 }
 
@@ -412,10 +476,19 @@ extern "C" int pob_msm_bucket_sum(const void* src, const void* idx, const void* 
   POB_CHECK();
 }
 
-extern "C" int pob_msm_reduce(const void* parts, const void* PL, int B, void* oX, void* oY,
-                              void* oZ, void* stream) {
-  reduce_kernel<<<B, NCH, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)parts, (const int*)PL, (int32_t*)oX, (int32_t*)oY, (int32_t*)oZ);
+// n: the keys' (proof, pass) count; sums null: one pass, written to oX, oY, oZ.
+extern "C" int pob_msm_reduce(const void* parts, const void* PL, int n, void* sums, void* oX,
+                              void* oY, void* oZ, void* stream) {
+  reduce_kernel<<<n, NCH, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)parts, (const int*)PL, (int32_t*)sums, (int32_t*)oX, (int32_t*)oY,
+      (int32_t*)oZ);
+  POB_CHECK();
+}
+
+extern "C" int pob_msm_fold(const void* sums, int B, int np, int S, void* oX, void* oY,
+                            void* oZ, void* stream) {
+  fold_kernel<<<blocks_for(B, 32), 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)sums, B, np, S, (int32_t*)oX, (int32_t*)oY, (int32_t*)oZ);
   POB_CHECK();
 }
 

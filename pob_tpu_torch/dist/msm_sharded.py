@@ -50,12 +50,13 @@ def _group(points) -> str:
     return "g1" if points[0].dim() == 2 else "g2"
 
 
-def _pad_shard_points(points, mesh: Mesh, perm=None) -> ShardedPoints:
+def _pad_shard_points(points, mesh: Mesh, perm=None,
+                      windows: int = msm.N_WINDOWS) -> ShardedPoints:
     """pob_tpu's prove_sharded._pad_shard_points (here, where the sharded MSM
     and the pipeline use it too): gather a Jacobian batch through `perm` if
     given, pad it to a multiple of the mesh size with infinity (Z = 0) and
-    split it over the mesh, with the K3 bases of this process's shards made
-    by K6 on their cards."""
+    split it over the mesh, with the K3 bases of this process's shards
+    (`windows` shifted windows each) made by K6 on their cards."""
     ndev = len(mesh.devices)
     group = _group(points)
     m = int(points[0].shape[0])
@@ -73,7 +74,7 @@ def _pad_shard_points(points, mesh: Mesh, perm=None) -> ShardedPoints:
         bases = []
         for _, dev, pts in local(mesh, shards):
             with on(dev):
-                bases.append(msm.affine_bases(group, pts))
+                bases.append(msm.affine_bases(group, pts, windows))
     return ShardedPoints(group, shards, bases, m, mp)
 
 

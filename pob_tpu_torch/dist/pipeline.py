@@ -83,6 +83,7 @@ class Groth16Pipeline:
         ndev = len(self._msm_devs)
         self._msm_mesh = Mesh(tuple(self._msm_devs), "msm") if ndev > 1 else None
         self._q = {}
+        ws = None  # the K3 bases' windows by groth16's rule, where the key's own are elsewhere
         for name, group in groth16.MSM_QUERIES:
             pts = getattr(pk, name)
             m = int(pts[0].shape[0])
@@ -94,8 +95,10 @@ class Groth16Pipeline:
             bases = None
             if d2.type == "cuda":
                 same = pk.bases is not None and pk.bases[name].device == d2
+                if not same and ws is None:
+                    ws = groth16.key_windows(pk, d2)
                 with on(d2):
-                    bases = pk.bases[name] if same else msm.affine_bases(group, pts)
+                    bases = pk.bases[name] if same else msm.affine_bases(group, pts, ws[name])
             self._q[name] = ((pts, bases), m)
 
     @contextlib.contextmanager

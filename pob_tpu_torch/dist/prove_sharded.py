@@ -42,8 +42,9 @@ import torch
 from ..field import limb
 from ..field.limb import FR
 from ..field.ref import FR_MOD
-from ..prover import ntt
-from ..prover.groth16 import MSM_QUERIES, ProvingKey, finish_proof, sparse_matvec_mont
+from ..prover import msm, ntt
+from ..prover.groth16 import (MSM_QUERIES, ProvingKey, finish_proof, key_windows,
+                              sparse_matvec_mont)
 from .mesh import Mesh, broadcast_ints, gather, local, on, shard
 from .msm_sharded import _pad_shard_points, msm_sharded
 from .ntt_sharded import _outer_twiddle, four_step_local, table_shards
@@ -160,9 +161,12 @@ def shard_pk(pk: ProvingKey, mesh: Mesh) -> ShardedProvingKey:
     _check_same_key(pk, mesh)
     k1, k2 = _split_k(pk.k, len(mesh.devices))
     perm = h_permutation(k1, k2)  # h-eval layout after the double four-step
+    first = mesh.devices[mesh.rank or 0]  # the rule's card: this process's first shard's
+    ws = (key_windows(pk, first) if first.type == "cuda"
+          else dict.fromkeys((q for q, _ in MSM_QUERIES), msm.N_WINDOWS))
     queries = {
         name: _pad_shard_points(getattr(pk, f"{name}_query"), mesh,
-                                perm=perm if name == "h" else None)
+                                perm=perm if name == "h" else None, windows=ws[f"{name}_query"])
         for name in ("a", "b1", "b2", "l", "h")
     }
     shift = ntt.domain_root(pk.k + 1)

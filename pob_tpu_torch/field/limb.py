@@ -313,6 +313,11 @@ def mont_pow_bits(spec: FieldSpec, a, exp_bits):
     return r
 
 
+def mont_pow_int(spec: FieldSpec, a, e: int):
+    """a^e for a in Montgomery form and a python int e >= 0."""
+    return mont_pow_bits(spec, a, _exp_bits(e))
+
+
 def inv_mont(spec: FieldSpec, a):
     """Inverse in Montgomery form by Fermat (a^(p-2)): aR -> a^-1 R; 0 -> 0."""
     return mont_pow_bits(spec, a, _exp_bits(spec.mod - 2))
@@ -336,6 +341,55 @@ def batch_inv_mont(spec: FieldSpec, a, axis: int = 0):
         acc = mont_mul(spec, acc, safe[i])
     out = torch.stack(outs, 0)
     return torch.where(zero, 0, out).movedim(0, axis)
+
+
+def _scan_products(spec: FieldSpec, x):
+    """Inclusive prefix products along axis 0, x[i] <- x[0] ... x[i]: a
+    Hillis-Steele scan, log2(n) steps of one batched product each (K1 on a
+    CUDA tensor)."""
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], mont_mul(spec, x[d:], x[:-d])], 0)
+        d *= 2
+    return x
+
+
+def batch_inv_mont_scan(spec: FieldSpec, a):
+    """Montgomery's trick over a large leading axis by log-depth scans (the
+    step-by-step batch_inv_mont suits small batches only): a (n, 16)
+    Montgomery, n >= 1; zero entries map to zero; one field inversion in
+    all. inv[i] = (prod of all)^-1 * (product before i) * (product after
+    i), from an inclusive prefix scan and an inclusive suffix scan."""
+    one = const(spec.r_mont, a).expand(a.shape)
+    zero = is_zero(a)[..., None]
+    safe = torch.where(zero, one, a)
+    prefix = _scan_products(spec, safe)
+    suffix = _scan_products(spec, safe.flip(0)).flip(0)
+    total_inv = inv_mont(spec, prefix[-1:])
+    pre_ex = torch.cat([one[:1], prefix[:-1]], 0)
+    suf_ex = torch.cat([suffix[1:], one[:1]], 0)
+    del prefix, suffix
+    out = mont_mul(spec, mont_mul(spec, pre_ex, suf_ex), total_inv)
+    return torch.where(zero, 0, out)
+
+
+def mont_powers_mont(spec: FieldSpec, base_mont, n: int):
+    """(n, 16) base^j in Montgomery form, j in [0, n), for a (16,) Montgomery
+    base tensor: the powers so far times base^len, doubling the length each
+    step (log2(n) products, K1 on a CUDA tensor)."""
+    assert n >= 1
+    acc = const(spec.r_mont, base_mont)[None]  # [base^0]
+    step = base_mont[None]
+    while acc.shape[0] < n:
+        acc = torch.cat([acc, mont_mul(spec, acc, step)], 0)
+        step = mont_sqr(spec, step)
+    return acc[:n]
+
+
+def mont_powers(spec: FieldSpec, base: int, n: int, device="cpu"):
+    """(n, 16) base^j in Montgomery form on `device`, j in [0, n)."""
+    base_m = torch.from_numpy(int_to_limbs(base % spec.mod * (1 << 256) % spec.mod)).to(device)
+    return mont_powers_mont(spec, base_m, n)
 
 
 # ---------------------------------------------------------------------------

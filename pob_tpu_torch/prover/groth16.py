@@ -12,9 +12,10 @@ mat-vecs and the six transforms of the h stage (K1, K2), then five MSMs.
 On the planned path (pob_tpu's default: setup attaches the key's MsmPlan,
 and POB_NO_PLAN is not set) the four witness MSMs are two K5 sweeps over
 the plan's points and the h MSM is K3; on the plain path all five are K3.
-Setup computes its scalars on the host with python ints (batch
-inversions, no per-element pow), forms every query point with K4, and
-makes K3's shifted bases and the plan's doubling chains with K6.
+Setup computes its scalars on the key's device (log-depth scans and
+column sums over K1, pob_tpu's setup route; setup_host takes the python-int
+route), forms every query point with K4, and makes K3's shifted bases (S
+windows per query, choose_windows) and the plan's doubling chains with K6.
 Verification is the host pairing check."""
 
 from __future__ import annotations
@@ -102,11 +103,66 @@ MSM_QUERIES = (("a_query", "g1"), ("b1_query", "g1"), ("b2_query", "g2"), ("l_qu
                ("h_query", "g1"))
 
 
-def attach_bases(pk: ProvingKey) -> ProvingKey:
-    """Make the affine bases of a key whose points lie on the card (once
-    per key, at setup and at load)."""
+def proof_bytes(k: int, m: int) -> int:
+    """Device bytes one proof at domain 2^k over queries of at most m points
+    is reckoned to need beside its key: its h stage (h_stage_bytes) and its
+    largest K3 call's scratch (msm.k3_scratch_bytes), counted as if they
+    were alive at once (the allocator's cache does not return the first
+    stage's blocks in the shapes the second asks for)."""
+    return h_stage_bytes(k) + msm.k3_scratch_bytes(1, m)
+
+
+def choose_windows(counts: dict, k: int, free: int, planned: bool = False,
+                   plan_bytes: int = 0) -> dict:
+    """The rule for the shifted windows S of each query's K3 bases (S
+    divides 32; msm.affine_bases(group, points, S)). counts: {query: its
+    points}; free: the device bytes the bases, the plan (plan_bytes) and
+    one proof (proof_bytes) may take, of which they plan to use MEM_SHARE.
+    (32, 8) everywhere when that fits: every Spend and TEST_CONFIG key.
+    Otherwise the queries the key's plan covers (planned: K5 proves them;
+    the plan gathers its bit points from window 0, and a zkey's point
+    sections are window 0) keep window 0 only, S = 1, and the others (the h
+    query; every query of a key without a plan) take the largest S that
+    fits, or 1."""
+    per = {q: counts[q] * msm._bases_width(g) * 4 for q, g in MSM_QUERIES}
+    budget = int(free * MEM_SHARE) - plan_bytes - proof_bytes(k, max(counts.values()))
+    for s in msm.WINDOW_COUNTS:
+        ws = {q: 1 if planned and q in PLANNED_QUERIES and s < msm.N_WINDOWS else s
+              for q in per}
+        if sum(ws[q] * per[q] for q in per) <= budget:
+            return ws
+    return ws
+
+
+def device_free_bytes(device) -> int:
+    """Free bytes of a card: the driver's free memory and the blocks the
+    caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def key_windows(pk: ProvingKey, device, planned: bool = False, plan_bytes: int = 0) -> dict:
+    """choose_windows for the key's queries on the card `device`."""
+    counts = {q: int(getattr(pk, q)[0].shape[0]) for q, _ in MSM_QUERIES}
+    return choose_windows(counts, pk.k, device_free_bytes(device), planned, plan_bytes)
+
+
+def bases_windows(pk: ProvingKey) -> dict | None:
+    """{query: S} of the key's K3 bases (None for a key without bases)."""
+    if pk.bases is None:
+        return None
+    return {q: int(pk.bases[q].shape[0]) // max(1, int(getattr(pk, q)[0].shape[0]))
+            or msm.N_WINDOWS for q, _ in MSM_QUERIES}
+
+
+def attach_bases(pk: ProvingKey, planned: bool = False, plan_bytes: int = 0) -> ProvingKey:
+    """Make the K3 bases of a key whose points lie on the card (once per
+    key, at setup and at load), S shifted windows per query by
+    choose_windows: planned says whether the key will carry a plan of
+    plan_bytes."""
     if pk.a_query[0].is_cuda:
-        pk.bases = {q: msm.affine_bases(g, getattr(pk, q)) for q, g in MSM_QUERIES}
+        ws = key_windows(pk, pk.a_query[0].device, planned, plan_bytes)
+        pk.bases = {q: msm.affine_bases(g, getattr(pk, q), ws[q]) for q, g in MSM_QUERIES}
     return pk
 
 
@@ -140,6 +196,88 @@ def _poly_evals_at_tau(coo, lag, nw) -> list:
     for j, i, c in zip(rows.tolist(), cols.tolist(), np.asarray(cidx).tolist()):
         out[i] += pal[c] * lag[j]
     return [x % FR_MOD for x in out]
+
+
+def _mont_const(c: int, device) -> torch.Tensor:
+    """A constant c as (16,) limbs of c R mod r (Montgomery form) on
+    `device`: mont_mul(x, _mont_const(c)) = x c."""
+    return torch.from_numpy(limb.int_to_limbs(c % FR_MOD * _R % FR_MOD)).to(device)
+
+
+def _lagrange_at_tau_mont_dev(k: int, tau: int, device):
+    """(n, 16) Montgomery limbs of L_j(tau) = w^j (tau^n - 1) / (n (tau -
+    w^j)) on `device`: the device twin of _lagrange_at_tau, by log-depth
+    powers and scans (limb.mont_powers_mont, batch_inv_mont_scan), so
+    the 2^24 domain of the production ProofOfBurn stays a few seconds."""
+    n = 1 << k
+    zt_over_n = (pow(tau, n, FR_MOD) - 1) * _inv(n) % FR_MOD
+    pws = limb.mont_powers_mont(FRS, _mont_const(ntt.domain_root(k), device), n)
+    denoms = limb.sub(FRS, _mont_const(tau, device).expand(pws.shape), pws)
+    invs = limb.batch_inv_mont_scan(FRS, denoms)
+    del denoms
+    return limb.mont_mul(FRS, limb.mont_mul(FRS, pws, invs), _mont_const(zt_over_n, device))
+
+
+# Column sums of _poly_evals_dev: a column of c terms gives int64 limb sums
+# below c 2^16, which carry_fix(., 40) normalizes while c < 2^24; each term
+# is below r, so the wide sum stays below c r < r R for the REDC. The
+# production ProofOfBurn's largest column (wire 0 in A) has 3,240,390
+# terms: limb sums below 2^37.7, a wide sum below 2^276.
+POLY_MAX_TERMS = 1 << 24
+
+
+def _poly_evals_dev(coo, lag_mont, nw: int):
+    """Device twin of _poly_evals_at_tau: u_i(tau) = sum over (row j, wire
+    i, coefficient c) of c L_j(tau), as (nw, 16) canonical limbs on
+    lag_mont's device. The COO's Montgomery terms c L_j R (K1) go
+    MATVEC_CHUNK at a time into int64 limb sums by column (index_add_),
+    then every column's wide sum is normalized (carry_fix) and reduced
+    once: REDC(sum of x R) = sum of x, canonical. The matvec's pattern
+    (sparse_matvec_mont) with rows and columns swapped; a column may hold
+    millions of terms (POLY_MAX_TERMS)."""
+    rows, cols, cidx, pal = coo
+    dev = lag_mont.device
+    out = torch.zeros(nw, limb.L, dtype=torch.int32, device=dev)
+    if len(cidx) == 0:
+        return out
+    most = int(np.bincount(np.asarray(cols), minlength=1).max())
+    if most >= POLY_MAX_TERMS:
+        raise ValueError(f"a column of {most} terms would overflow _poly_evals_dev's sums")
+    pal_m = limb.to_mont(FRS, limb.to_device(limb.ints_to_limbs(pal), dev))
+    sums = torch.zeros(nw, limb.L, dtype=torch.int64, device=dev)
+    for o in range(0, len(cidx), MATVEC_CHUNK):
+        c = slice(o, o + MATVEC_CHUNK)
+        r = torch.from_numpy(np.asarray(rows[c], np.int64)).to(dev)
+        ci = torch.from_numpy(np.asarray(cidx[c], np.int64)).to(dev)
+        terms = limb.mont_mul(FRS, pal_m[ci], lag_mont[r])  # c L_j R
+        sums.index_add_(0, torch.from_numpy(np.asarray(cols[c], np.int64)).to(dev),
+                        terms.to(torch.int64))
+    for o in range(0, nw, MATVEC_CHUNK):
+        c = slice(o, o + MATVEC_CHUNK)
+        norm = limb.carry_fix(torch.nn.functional.pad(sums[c], (0, limb.L)), 40)
+        out[c] = limb.mont_reduce(FRS, norm.to(torch.int32))
+    return out
+
+
+def _setup_scalars_kernel(npub: int, u, v, w, beta_m, alpha_m, ginv_m, dinv_m):
+    """The ic and l query scalars from the canonical QAP evaluations:
+    k_i = beta u_i + alpha v_i + w_i, ic = k[:npub + 1] / gamma, l =
+    k[npub + 1:] / delta (canonical limbs; the constants in Montgomery
+    form)."""
+    kv = limb.add(FRS, limb.add(FRS, limb.mont_mul(FRS, u, beta_m),
+                                limb.mont_mul(FRS, v, alpha_m)), w)
+    return limb.mont_mul(FRS, kv[:npub + 1], ginv_m), limb.mont_mul(FRS, kv[npub + 1:], dinv_m)
+
+
+def _h_scalars_kernel(k: int, tau_m, s_m, mult):
+    """The coset-Lagrange h basis x_j (tau^{2n} - 1) / (2 n delta (tau -
+    x_j)) for x_j = s w^j, j < n, canonical limbs; tau_m and s_m in
+    Montgomery form, mult the constant (tau^{2n} - 1) / (2 n delta) in
+    plain form (its product with a Montgomery value is canonical)."""
+    x = limb.mont_mul(FRS, limb.mont_powers_mont(FRS, _mont_const(ntt.domain_root(k), s_m.device),
+                                                 1 << k), s_m)
+    invs = limb.batch_inv_mont_scan(FRS, limb.sub(FRS, tau_m.expand(x.shape), x))
+    return limb.mont_mul(FRS, limb.mont_mul(FRS, x, invs), mult)
 
 
 def _indexed_matrices(cs: ConstraintSystem):
@@ -178,10 +316,15 @@ def _mats_to_device(host_mats, device):
 
 
 def _fixed_base_many(group: str, scalar_lists, device):
-    """One K4 call over every list's scalars; returns one point tuple each."""
+    """One K4 call over every list's scalars (lists of python ints, or (m,
+    16) limb tensors on `device`); returns one point tuple each."""
     sizes = [len(s) for s in scalar_lists]
-    flat = [x for s in scalar_lists for x in s]
-    pts = msm.fixed_base_msm(group, limb.to_device(limb.ints_to_limbs(flat), device))
+    if all(torch.is_tensor(s) for s in scalar_lists):
+        flat = torch.cat(scalar_lists, 0)
+    else:
+        flat = limb.to_device(limb.ints_to_limbs([x for s in scalar_lists for x in s]), device)
+    pts = msm.fixed_base_msm(group, flat)
+    del flat
     out, o = [], 0
     for n in sizes:
         out.append(tuple(c[o:o + n] for c in pts))
@@ -219,6 +362,35 @@ def setup_scalars(cs: ConstraintSystem, toxic):
     return k, scalars, (mat_a, mat_b)
 
 
+def setup_scalars_dev(cs: ConstraintSystem, toxic, device):
+    """setup_scalars on `device` (pob_tpu's setup route): (k, {query name:
+    (m, 16) canonical limb tensor}, host matrices). L_j(tau) and the h basis
+    by log-depth scans, u, v, w by column sums over the COOs, then the ic
+    and l scalars; K1 does the products on a card, its plain version on
+    the CPU. The same values as setup_scalars."""
+    tau, alpha, beta, gamma, delta = toxic
+    npub = cs.num_public
+    k = max(1, _next_pow2(cs.num_constraints + npub + 1))
+    n = 1 << k
+    nw = cs.num_wires
+
+    lag = _lagrange_at_tau_mont_dev(k, tau, device)
+    mat_a, mat_b, mat_c = _indexed_matrices(cs)
+    u, v, w = (_poly_evals_dev(m, lag, nw) for m in (mat_a, mat_b, mat_c))
+    del lag
+    ginv, dinv = _inv(gamma), _inv(delta)
+    ic, l_sc = _setup_scalars_kernel(npub, u, v, w, *(_mont_const(c, device) for c in (
+        beta, alpha, ginv, dinv)))
+    del w
+    s = ntt.domain_root(k + 1)  # coset shift w_{2n}: s^n = -1
+    c0 = (pow(tau, 2 * n, FR_MOD) - 1) * _inv(2 * n) % FR_MOD * dinv % FR_MOD
+    h_sc = _h_scalars_kernel(k, _mont_const(tau, device), _mont_const(s, device),
+                             torch.from_numpy(limb.int_to_limbs(c0)).to(device))
+    scalars = {"a_query": u, "b1_query": v, "b2_query": v, "l_query": l_sc,
+               "h_query": h_sc, "ic": ic}
+    return k, scalars, (mat_a, mat_b)
+
+
 G1_QUERIES = ("a_query", "b1_query", "l_query", "h_query", "ic")  # one K4 call, this order
 
 
@@ -226,20 +398,35 @@ def setup(cs: ConstraintSystem, rng=None, plan: bool = True, device=None,
           timings: dict | None = None):
     """Trusted setup (toxic waste sampled locally: fine for benchmarking and
     self-verification). Draws tau, alpha, beta, gamma, delta from `rng` in
-    that order, computes the query scalars on the host and the query points
-    with K4 on `device`. With `plan` (the default, as pob_tpu's setup has
-    it) the key gets its witness-MSM plan (attach_msm_plan); plan=False
-    proves on the plain path. Returns (ProvingKey, VerifyingKey). With a
-    `timings` dict, the seconds of the host scalars, of the K4 calls (with
-    their host-to-card copies), of the key's affine bases and of the plan
-    are stored under "scalars_s", "k4_s", "bases_s" and "plan_s" (each
-    synchronized)."""
+    that order, computes the query scalars on `device` (setup_scalars_dev)
+    and the query points with K4 there. With `plan` (the default, as
+    pob_tpu's setup has it) the key gets its witness-MSM plan
+    (attach_msm_plan); plan=False proves on the plain path. Returns
+    (ProvingKey, VerifyingKey). With a `timings` dict, the seconds of the
+    scalars, of the K4 calls, of the key's K3 bases (their windows by
+    choose_windows) and of the plan are stored under "scalars_s", "k4_s",
+    "bases_s" and "plan_s" (each synchronized)."""
     device = _build.resolve_device(device)
+    return _setup(cs, rng, plan, device, timings,
+                  lambda toxic: setup_scalars_dev(cs, toxic, device))
+
+
+def setup_host(cs: ConstraintSystem, rng=None, plan: bool = True, device=None,
+               timings: dict | None = None):
+    """setup through host scalars (setup_scalars, python ints), pob_tpu's
+    setup_host: the plain version of setup's scalars, the rest as setup;
+    under the same rng the same key."""
+    device = _build.resolve_device(device)
+    return _setup(cs, rng, plan, device, timings, lambda toxic: setup_scalars(cs, toxic))
+
+
+def _setup(cs, rng, plan, device, timings, scalars_fn):
     rnd = rng or (lambda: secrets.randbelow(FR_MOD - 1) + 1)
     toxic = tuple(rnd() for _ in range(5))
     _, alpha, beta, gamma, delta = toxic
     t0 = time.perf_counter()
-    k, sc, host_mats = setup_scalars(cs, toxic)
+    k, sc, host_mats = scalars_fn(toxic)
+    _sync(device)
     t1 = time.perf_counter()
 
     a_q, b1_q, l_q, h_q, ic_q = _fixed_base_many("g1", [sc[q] for q in G1_QUERIES], device)
@@ -257,15 +444,17 @@ def setup(cs: ConstraintSystem, rng=None, plan: bool = True, device=None,
         mats=_mats_to_device(host_mats, device),
     )
     t3 = time.perf_counter()
-    attach_bases(pk)
+    bit = classify_bit_wires(cs) if plan else None  # the plan's bytes size the bases
+    classify_s = time.perf_counter() - t3
+    attach_bases(pk, plan, plan_nbytes(pk, bit) if plan else 0)
     _sync(device)
     t4 = time.perf_counter()
     if plan:
-        attach_msm_plan(pk, cs)
+        pk.plan = MsmPlan(*(_plan_group(pk, g, names, bit) for g, names in PLAN_GROUPS))
         _sync(device)
     if timings is not None:
-        timings.update(scalars_s=t1 - t0, k4_s=t2 - t1, bases_s=t4 - t3,
-                       plan_s=time.perf_counter() - t4)
+        timings.update(scalars_s=t1 - t0, k4_s=t2 - t1, bases_s=t4 - t3 - classify_s,
+                       plan_s=time.perf_counter() - t4 + classify_s)
     vk = VerifyingKey(alpha1=pk.alpha1, beta2=pk.beta2, gamma2=g2_mul(G2_GEN, gamma),
                       delta2=pk.delta2, ic=curve.to_affine_host_batch("fq", ic_q))
     return pk, vk
@@ -286,6 +475,7 @@ def setup(cs: ConstraintSystem, rng=None, plan: bool = True, device=None,
 FULL_BITS = bitsum.FULL_BITS
 PLAN_GROUPS = (("g1", ("a_query", "b1_query", "l_query")), ("g2", ("b2_query",)))
 PLAN_PAD = 4096  # the plan's points per query are padded to a multiple of this
+PLANNED_QUERIES = tuple(q for _, names in PLAN_GROUPS for q in names)
 
 
 def classify_bit_wires(cs: ConstraintSystem) -> np.ndarray:
@@ -358,14 +548,9 @@ def _wire_offset(pk: ProvingKey, name: str) -> int:
     return pk.num_public + 1 if name == "l_query" else 0
 
 
-def _plan_group(pk: ProvingKey, group: str, names, bit) -> PlanGroup:
-    """Build one group's plan on the key's device: the live bit points from
-    the key's affine bases (window 0 is P_i, packed affine: a gather, with
-    no transient copy beside a key that fills most of the card) or, on the
-    CPU, where the key has no bases, by K6 at (1, 0); the full points
-    gathered from the Jacobian queries and expanded by one K6 call at
-    (254, 1) for the whole group."""
-    dev = getattr(pk, names[0])[0].device
+def _plan_layout(pk: ProvingKey, names, bit):
+    """One group's plan layout: ({query: (its live bit wires, its live full
+    wires)}, mb, mf, M), live meaning a finite query point."""
     idx = {}
     for name in names:
         z = getattr(pk, name)[2]
@@ -374,7 +559,28 @@ def _plan_group(pk: ProvingKey, group: str, names, bit) -> PlanGroup:
         idx[name] = (np.nonzero(bit[wires] & live)[0], np.nonzero(~bit[wires] & live)[0])
     mb = max(len(b) for b, _ in idx.values())
     mf = max(max(len(f) for _, f in idx.values()), 1)
-    M = _padded_to(mb + mf * FULL_BITS, PLAN_PAD)
+    return idx, mb, mf, _padded_to(mb + mf * FULL_BITS, PLAN_PAD)
+
+
+def plan_nbytes(pk: ProvingKey, bit) -> int:
+    """The device bytes of the plan _plan_group builds for the key (MsmPlan's
+    nbytes), from its layout alone."""
+    total = 0
+    for group, names in PLAN_GROUPS:
+        _, mb, mf, M = _plan_layout(pk, names, bit)
+        total += len(names) * (M * msm._bases_width(group) + mb + mf + 2) * 4
+    return total
+
+
+def _plan_group(pk: ProvingKey, group: str, names, bit) -> PlanGroup:
+    """Build one group's plan on the key's device: the live bit points from
+    the key's affine bases (window 0 is P_i, packed affine: a gather, with
+    no transient copy beside a key that fills most of the card) or, on the
+    CPU, where the key has no bases, by K6 at (1, 0); the full points
+    gathered from the Jacobian queries and expanded by one K6 call at
+    (254, 1) for the whole group."""
+    dev = getattr(pk, names[0])[0].device
+    idx, mb, mf, M = _plan_layout(pk, names, bit)
 
     def gather(k):  # the group's Jacobian points of bit (k = 0) or full wires
         pts = [tuple(c[torch.from_numpy(idx[n][k]).to(dev)] for c in getattr(pk, n))
@@ -545,9 +751,7 @@ def batch_chunk(pk: ProvingKey, B: int, device) -> int:
     included) holds of the h stage's temporaries (h_stage_bytes)."""
     chunk = msm.k3_max_batch(max(1 << pk.k, int(pk.a_query[0].shape[0])))
     if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        chunk = min(chunk, int(free * MEM_SHARE) // h_stage_bytes(pk.k))
+        chunk = min(chunk, int(device_free_bytes(device) * MEM_SHARE) // h_stage_bytes(pk.k))
     return max(1, min(B, chunk))
 
 

@@ -7,8 +7,9 @@ version for CPU tensors only and launch the kernel for CUDA tensors.
 
 - K3 ``msm_batched`` (``csrc/msm.cuh``): out[b] = sum_i s[b, i] P[i] with
   8-bit digits, by the bucket method over the key's shifted bases
-  2^(8w) P_i (``affine_bases``): 255 buckets per proof, no doublings per
-  call. Plain version ``msm_plain``: buckets per (proof, window, digit)
+  2^(8w) P_i, w < S (``affine_bases``): 32 / S passes of 255 buckets per
+  proof, folded with 8 S doublings between passes (none at S = 32, the
+  key's default). Plain version ``msm_plain``: buckets per (proof, window, digit)
   summed by sort and pairwise adds (``segment_sum``), then per bit
   position and a binary-tree Horner.
 - K6 ``affine_bases`` (``csrc/msm.cuh``'s shifted-bases kernel): packed
@@ -45,6 +46,7 @@ SEG0 = 32  # most points one K3 thread sums at the first bucket-sum level
 SEG = 8  # most partials one K3 thread sums at each later level
 HIST_CHUNK = 256  # scalars per hist / scatter block (HT in csrc/msm.cuh)
 K3_MAX_DIGITS = (1 << 31) - 1  # K3 indexes a call's B m 32 sorted digits with int32
+WINDOW_COUNTS = (32, 16, 8, 4, 2, 1)  # the shifted windows S K3's bases may hold: divisors of 32
 
 _GROUP_ID = {"g1": 0, "g2": 1}
 _MSM_SRC = {"g1": "msm_g1.cu", "g2": "msm_g2.cu"}
@@ -218,16 +220,29 @@ def level_segs(n: int) -> list:
     return segs
 
 
-def level_caps(B: int, m: int, segs) -> list:
-    """Most items each level can have, from B and m alone: B m 32 digits at
-    level 0; a level of n items in k buckets has at most n // s + 1 + k
-    segments of s, and never more than n. These size K3's scratch and grids,
-    so no count is read back from the card."""
-    n_keys = B * N_BUCKETS
+def level_caps(B: int, m: int, segs, passes: int = 1) -> list:
+    """Most items each level can have, from B, m and the passes alone: B m
+    32 digits at level 0; a level of n items in k buckets (B passes 256) has
+    at most n // s + 1 + k segments of s, and never more than n. These size
+    K3's scratch and grids, so no count is read back from the card."""
+    n_keys = B * passes * N_BUCKETS
     caps = [B * m * N_WINDOWS]
     for s in segs:
         caps.append(min(caps[-1], caps[-1] // s + 1 + n_keys))
     return caps
+
+
+def k3_scratch_bytes(B: int, m: int) -> int:
+    """Device bytes of one G1 K3 call's scratch over bases of 32 windows
+    (pippenger_cuda): the counts, the block histograms, the sorted digits
+    and every level's partials. Fewer windows add 256 keys a pass, some
+    kilobytes."""
+    segs = level_segs(N_WINDOWS * m)
+    caps = level_caps(B, m, segs)
+    n_keys = B * N_BUCKETS
+    pw = 3 * _bases_width("g1") // 2
+    return 4 * (2 * n_keys + B * -(-m // HIST_CHUNK) * N_BUCKETS + caps[0]
+                + (len(segs) + 1) * (n_keys + 1) + pw * sum(caps[1:]))
 
 
 def segment_layout_plain(counts, segs):
@@ -418,9 +433,15 @@ def k3_max_batch(m: int) -> int:
 
 def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     """K3 launches (csrc/msm.cuh): hist, layout, scatter (the digits of each
-    proof sorted into 255 buckets by value, as indices into the shifted
-    bases); one bucket-sum launch per level of level_segs(32 m); reduce.
-    Every buffer and grid is sized from B and m (level_caps), so nothing is
+    proof sorted into 255 buckets by value per pass, as indices into the
+    shifted bases); one bucket-sum launch per level of level_segs(32 m);
+    reduce; with more than one pass, fold. The bases hold S shifted windows
+    per point (affine_bases(group, points, S), S dividing 32, read from
+    their shape): window w of point i adds base (w mod S) m + i into the
+    buckets of pass w div S, each proof has 32 / S passes of 255 buckets,
+    the reduce forms each pass's weighted sum, and the fold sums the passes
+    Horner-style with 8 S doublings between them (none at S = 32). Every
+    buffer and grid is sized from B, m and S (level_caps), so nothing is
     read back to the host between the first launch and the output."""
     points = tuple(c.contiguous() for c in points)
     scalars = scalars.contiguous()
@@ -437,8 +458,11 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     if bases is None:
         bases = affine_bases(group, points)
     _build.check_cuda(bases)
-    if tuple(bases.shape) != (N_WINDOWS * m, _bases_width(group)):
-        raise ValueError(f"bases must be affine_bases of the points, got {tuple(bases.shape)}")
+    S = bases.shape[0] // m
+    if (bases.dim() != 2 or tuple(bases.shape) != (S * m, _bases_width(group))
+            or S not in WINDOW_COUNTS):
+        raise ValueError(f"bases must be affine_bases of the points with S windows, S dividing "
+                         f"32, got {tuple(bases.shape)} for m = {m}")
     lib = _build.lib(_MSM_SRC[group])
     stream = _build.stream_ptr(scalars)
     pw = 3 * _bases_width(group) // 2  # words of a packed Jacobian partial
@@ -446,20 +470,21 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
     def i32(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
 
-    n_keys = B * N_BUCKETS
-    chunks = -(-m // HIST_CHUNK)
+    passes = N_WINDOWS // S
+    n_keys = B * passes * N_BUCKETS
+    chunks = -(-m // (HIST_CHUNK * passes))
     counts = torch.zeros(n_keys, dtype=torch.int32, device=dev)
-    blockhist = i32(B * chunks * N_BUCKETS)
-    _launch(timing, "hist", lib.pob_msm_hist, scalars.data_ptr(), B, m, blockhist.data_ptr(),
-            counts.data_ptr(), stream)
+    blockhist = i32(B * passes * chunks * N_BUCKETS)
+    _launch(timing, "hist", lib.pob_msm_hist, scalars.data_ptr(), B, m, S,
+            blockhist.data_ptr(), counts.data_ptr(), stream)
     segs = level_segs(N_WINDOWS * m)
     if len(segs) > lib.pob_msm_max_levels():
         raise ValueError(f"m = {m} needs {len(segs)} bucket-sum levels, more than K3's "
                          f"{lib.pob_msm_max_levels()}")
-    caps = level_caps(B, m, segs)
+    caps = level_caps(B, m, segs, passes)
     P, cursor = _layout_cuda(lib, counts, segs, stream, timing)
     idx = i32(caps[0])
-    _launch(timing, "scatter", lib.pob_msm_scatter, scalars.data_ptr(), B, m,
+    _launch(timing, "scatter", lib.pob_msm_scatter, scalars.data_ptr(), B, m, S,
             blockhist.data_ptr(), cursor.data_ptr(), idx.data_ptr(), stream)
     src, src_idx = bases, idx
     for level, seg in enumerate(segs):
@@ -469,8 +494,15 @@ def pippenger_cuda(group: str, points, scalars, bases=None, timing=None):
                 P[level + 1].data_ptr(), n_keys, seg, caps[level + 1], out.data_ptr(), stream)
         src, src_idx = out, None
     out = _empty_points(group, B, dev)
-    _launch(timing, "reduce", lib.pob_msm_reduce, src.data_ptr(), P[-1].data_ptr(), B,
-            *_ptrs(out), stream)
+    if passes == 1:
+        _launch(timing, "reduce", lib.pob_msm_reduce, src.data_ptr(), P[-1].data_ptr(), B,
+                None, *_ptrs(out), stream)
+        return out
+    sums = i32(B * passes * pw)  # each (proof, pass)'s weighted sum, packed Jacobian
+    _launch(timing, "reduce", lib.pob_msm_reduce, src.data_ptr(), P[-1].data_ptr(),
+            B * passes, sums.data_ptr(), None, None, None, stream)
+    _launch(timing, "fold", lib.pob_msm_fold, sums.data_ptr(), B, passes, S, *_ptrs(out),
+            stream)
     return out
 
 

@@ -73,8 +73,30 @@ def _coset_powers(k: int, shift: int, inverse: bool) -> np.ndarray:
     return limb.ints_to_limbs(x * _R % FR_MOD for x in _powers(g, 1 << k))
 
 
+def _root_powers_dev(k: int, inverse: bool, device) -> torch.Tensor:
+    """_root_powers made on `device` by limb.mont_powers_mont (K1 on a card):
+    the same bits."""
+    w = domain_root(k)
+    if inverse:
+        w = pow(w, FR_MOD - 2, FR_MOD)
+    return limb.mont_powers(FR, w, max(1, (1 << k) // 2), device)
+
+
+def _coset_powers_dev(k: int, shift: int, inverse: bool, device) -> torch.Tensor:
+    """_coset_powers made on `device` by limb.mont_powers_mont: the same bits."""
+    g = pow(shift, FR_MOD - 2, FR_MOD) if inverse else shift
+    return limb.mont_powers(FR, g, 1 << k, device)
+
+
+# On a card the twiddle and coset tables are made there: at 2^24 the host
+# tables are some 33.6 M python ints (about a minute of host time).
+_MADE_ON_CARD = {_root_powers: _root_powers_dev, _coset_powers: _coset_powers_dev}
+
+
 @functools.lru_cache(maxsize=32)
 def _on_device(fn, args: tuple, device: str) -> torch.Tensor:
+    if torch.device(device).type == "cuda" and fn in _MADE_ON_CARD:
+        return _MADE_ON_CARD[fn](*args, device)
     return limb.to_device(fn(*args), device)
 
 
@@ -82,22 +104,27 @@ def _table(fn, *args, like: torch.Tensor) -> torch.Tensor:
     return _on_device(fn, args, str(like.device))
 
 
+PLAIN_CHUNK = 1 << 20  # butterflies per step of _transform_plain (bounds its int64 temporaries)
+
+
 def _transform_plain(a, k: int, roots):
     """Bit-reversed input -> k butterfly stages with torch gathers and the
-    plain field functions (the plain version of K2, on any device)."""
+    plain field functions (the plain version of K2, on any device), each
+    stage PLAIN_CHUNK butterflies at a time."""
     n = 1 << k
-    j = torch.arange(n // 2, device=a.device)
     for s in range(k):
         half = 1 << s
-        jm = j % half
-        u_idx = (j // half) * (2 * half) + jm
-        v_idx = u_idx + half
-        tw = roots[jm * (n // 2 // half)]
-        u = a.index_select(-2, u_idx)
-        v = limb.mont_mul_plain(FR, a.index_select(-2, v_idx), tw)
         out = torch.empty_like(a)
-        out[..., u_idx, :] = limb.add_plain(FR, u, v)
-        out[..., v_idx, :] = limb.sub_plain(FR, u, v)
+        for o in range(0, n // 2, PLAIN_CHUNK):
+            j = torch.arange(o, min(o + PLAIN_CHUNK, n // 2), device=a.device)
+            jm = j % half
+            u_idx = (j // half) * (2 * half) + jm
+            v_idx = u_idx + half
+            tw = roots[jm * (n // 2 // half)]
+            u = a.index_select(-2, u_idx)
+            v = limb.mont_mul_plain(FR, a.index_select(-2, v_idx), tw)
+            out[..., u_idx, :] = limb.add_plain(FR, u, v)
+            out[..., v_idx, :] = limb.sub_plain(FR, u, v)
         a = out
     return a
 

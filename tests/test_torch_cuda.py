@@ -564,3 +564,53 @@ def test_k1_point_ops_on_card_match_plain(dev, group):
     got = curve.tree_reduce(curve.k1_ops_for(group), pts)
     want = curve.tree_reduce(ops, pts)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("S", [1, 2, 8, 16])
+def test_k3_shifted_windows_match_plain(dev, group, S):
+    """K3 over bases of S shifted windows (32 / S passes, folded with 8 S
+    doublings): random scalars with the digit edges at B = 2, and a skewed
+    batch (every scalar 1: one bucket of m entries in pass 0, the other
+    passes empty) at m = 2048, against the plain version; the launches are
+    K3's five of S = 32 plus its levels and the fold."""
+    ops = curve.ops_for(group)
+    m = 300
+    pts = msm.fixed_base_msm(group, _elems((m,), 20 + S).to(dev))
+    bases = msm.affine_bases(group, pts, S)
+    assert bases.shape[0] == S * m
+    sc = _elems((2, m), 21).to(dev)
+    edges = [0x7F, 0x80, 0xFF, FR_MOD - 1, 0x7F << 240, 0x80 << 120, 0xFF << 8, 0]
+    sc[0, :len(edges)] = limb.to_device(limb.ints_to_limbs(edges), dev)
+    before = _build.LAUNCHES["msm"]
+    got = msm.msm_batched(group, pts, sc, bases)
+    assert _build.LAUNCHES["msm"] - before == 4 + len(msm.level_segs(32 * m)) + 1
+    assert _same(group, got, msm.msm_plain(ops, pts, sc))
+    m_skew = 2048
+    pts1 = msm.fixed_base_msm(group, _elems((m_skew,), 22).to(dev))
+    sc1 = limb.to_device(limb.ints_to_limbs([1] * m_skew), dev).reshape(1, m_skew, 16)
+    assert _same(group, msm.msm_batched(group, pts1, sc1, msm.affine_bases(group, pts1, S)),
+                 msm.msm_plain(ops, pts1, sc1))
+    with pytest.raises(ValueError):
+        msm.msm_batched(group, pts, sc, bases[:-1])
+
+
+def test_setup_scalars_on_card_equal_host(dev):
+    """setup_scalars_dev on the card (K1 in the scans and column sums)
+    equals setup_scalars' host ints on the toy circuit; the NTT tables
+    made on the card equal the host tables at k = 10."""
+    from pob_tpu_torch.prover import groth16
+
+    cs, _, _, _, _ = _toy_keyed(dev)
+    toxic = (1234567, 89101112, 13141516, 17181920, 21222324)
+    k, host, _ = groth16.setup_scalars(cs, toxic)
+    k2, card, _ = groth16.setup_scalars_dev(cs, toxic, dev)
+    assert k == k2
+    for q in host:
+        assert card[q].is_cuda and limb.limb_rows_to_ints(card[q].cpu().numpy()) == host[q], q
+    shift = ntt.domain_root(11)
+    for inverse in (False, True):
+        assert np.array_equal(ntt._root_powers_dev(10, inverse, dev).cpu().numpy(),
+                              ntt._root_powers(10, inverse))
+        assert np.array_equal(ntt._coset_powers_dev(10, shift, inverse, dev).cpu().numpy(),
+                              ntt._coset_powers(10, shift, inverse))

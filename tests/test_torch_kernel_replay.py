@@ -254,3 +254,115 @@ def test_k5_sweep_run(q, B, M, warps, sms, want):
     assert run == want and run % 32 == 0
     if run > bitsum.MIN_RUN:
         assert -(-q * B * M // run) <= bitsum.SWEEP_WAVES * warps * sms
+
+
+# ---------------------------------------------------------------------------
+# K3 over bases of S shifted windows
+# ---------------------------------------------------------------------------
+
+
+def _k3_digits(scalars, S: int):
+    """K3's hist / scatter grid at S shifted windows (csrc/msm.cuh), as the
+    kernels take it: block (b np + p) chunks + c takes pass p of proof b over
+    scalars (c np + r) HT + t, r < np, windows p S .. p S + S - 1; a nonzero
+    digit d of window w of point i goes to bucket d of key b np + p as row
+    (w mod S) m + i of the bases. Returns (keys, rows, how many times each
+    digit was taken)."""
+    B, m = scalars.shape[:2]
+    npass = msm.N_WINDOWS // S
+    HT = msm.HIST_CHUNK
+    dig = msm.scalar_digits(scalars).numpy()
+    chunks = -(-m // (HT * npass))
+    taken = np.zeros(dig.shape, np.int64)
+    keys, rows = [], []
+    for blk in range(B * npass * chunks):
+        key = blk // chunks
+        b, p = divmod(key, npass)
+        c = blk - key * chunks
+        i = ((c * npass + np.arange(npass)[:, None]) * HT + np.arange(HT)).ravel()
+        i = i[i < m]
+        for win in range(p * S, p * S + S):
+            taken[b, i, win] += 1
+            d = dig[b, i, win]
+            keys.append(key * msm.N_BUCKETS + d[d != 0])
+            rows.append((win - p * S) * m + i[d != 0])
+    return np.concatenate(keys), np.concatenate(rows), taken
+
+
+def _replay_k3(group: str, points, scalars, S: int):
+    """K3 at S shifted windows replayed: the digits through _k3_digits into
+    the bases (affine_bases_plain at (S, 8)), the buckets summed, each key's
+    weighted sum sum_d d B_d formed, and each proof's passes folded from the
+    top with 8 S doublings between them."""
+    ops = curve.ops_for(group)
+    B = scalars.shape[0]
+    npass = msm.N_WINDOWS // S
+    keys, rows, taken = _k3_digits(scalars, S)
+    assert (taken == 1).all()
+    bases = msm.affine_bases_plain(group, points, S, msm.WINDOW_BITS)
+    order = np.argsort(keys, kind="stable")
+    pts = msm.packed_to_jacobian(group, bases[torch.from_numpy(rows[order])])
+    bkey, bsum = msm.segment_sum(ops, torch.from_numpy(keys[order]), pts)
+    nk, nb = B * npass, msm.WINDOW_BITS
+    # each key's weighted sum: sum_d d B_d = sum_j 2^j (sum of B_d over the d with bit j)
+    bit = (bkey[:, None] >> torch.arange(nb)) & 1
+    k, j = bit.nonzero(as_tuple=True)
+    jkey, order = torch.sort(bkey[k] // msm.N_BUCKETS * nb + j, stable=True)
+    jkey, jsum = msm.segment_sum(ops, jkey, tuple(c[k[order]] for c in bsum))
+    per_bit = msm._scatter(ops, nk * nb, jkey, jsum, "cpu")
+    acc = msm.horner_bits(ops, tuple(c.reshape((nk, nb) + c.shape[1:]) for c in per_bit))
+    v = tuple(c.reshape((B, npass) + c.shape[1:]) for c in acc)
+    out = tuple(c[:, npass - 1] for c in v)
+    for p in range(npass - 2, -1, -1):
+        out = curve.point_add(ops, curve.times_pow2(ops, out, msm.WINDOW_BITS * S),
+                              tuple(c[:, p] for c in v))
+    return out
+
+
+@pytest.mark.parametrize("S,m", [(1, 24), (2, 20), (8, 24), (32, 17)])
+def test_k3_passes_replayed_match_plain(S, m):
+    """K3's pass mapping and fold at S = 1, 2, 8, 32 on G1 (the card's tests
+    hold G2 at S = 1, 2, 8, 16), m <= 24: two proofs,
+    random scalars with the digit edges 0x7F, 0x80, 0xFF and r - 1 and a
+    zero scalar among them, over points with Z != 1 and an infinite one;
+    the replay equals msm_plain."""
+    group = "g1"
+    ops = curve.ops_for(group)
+    rng = np.random.default_rng(S + m)
+    pts = _points(group)  # 5 with Z != 1, then infinity; more as sums of neighbours
+    while pts[0].shape[0] < m:
+        pts = tuple(torch.cat(cs, 0) for cs in zip(pts, curve.point_add(
+            ops, pts, tuple(c.roll(1, 0) for c in pts))))
+    pts = tuple(c[:m] for c in pts)
+    vals = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(2 * m)]
+    vals[:5] = [0x7F, 0x80 << 120, 0xFF << 248 & ((1 << 254) - 1), FR_MOD - 1, 0]
+    sc = torch.from_numpy(limb.ints_to_limbs(vals)).reshape(2, m, limb.L)
+    got = _replay_k3(group, pts, sc, S)
+    assert bool(curve.points_equal(ops, got, msm.msm_plain(ops, pts, sc)).all())
+
+
+@pytest.mark.parametrize("S", [1, 2, 8, 32])
+def test_k3_grid_takes_each_digit_once(S):
+    """At m = 20,000 (several chunks of every pass) and B = 2, the hist /
+    scatter grid takes every digit of every proof exactly once, and the
+    rows it writes stay inside the S m rows of the bases."""
+    m = 20000
+    rng = np.random.default_rng(S)
+    sc = torch.from_numpy(rng.integers(0, 1 << 16, (2, m, limb.L)).astype(np.int32))
+    keys, rows, taken = _k3_digits(sc, S)
+    assert (taken == 1).all()
+    assert keys.size == int((msm.scalar_digits(sc) != 0).sum())
+    assert rows.min() >= 0 and rows.max() < S * m
+    assert keys.max() < 2 * (msm.N_WINDOWS // S) * msm.N_BUCKETS
+
+
+def test_k3_caps_per_pass():
+    """One key space of B (32 / S) 256 buckets at the production h query
+    (m = 2^24, 9 levels, B <= 3): level_caps grow by the passes' keys only;
+    at S = 32 they are those of one pass."""
+    m = 1 << 24
+    segs = msm.level_segs(msm.N_WINDOWS * m)
+    assert len(segs) == 9 and msm.k3_max_batch(m) == 3
+    assert msm.level_caps(3, m, segs) == msm.level_caps(3, m, segs, 1)
+    c1, c4 = msm.level_caps(1, m, segs, 1), msm.level_caps(1, m, segs, 4)
+    assert c1[0] == c4[0] == 32 * m and c4[1] == c1[1] + 3 * 256

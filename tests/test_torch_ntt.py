@@ -91,3 +91,17 @@ def test_k2_pass_tiling_matches_plain(k):
     passes = tntt.ntt_passes(k)
     assert sum(t for _, t, _ in passes) == k and len(passes) == -(-k // tntt.TILE_LOG)
     assert all(t + c <= tntt.TILE_LOG and c <= s0 for s0, t, c in passes)
+
+
+def test_plain_transform_in_chunks(monkeypatch):
+    """The plain K2 goes PLAIN_CHUNK butterflies at a time (2^20: at the
+    production domain 2^24 one stage at once would need some 20 GB of int64
+    temporaries); in chunks of 8 it gives the same rows as in one."""
+    k = 7
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 1 << 16, (2, 1 << k, 16))
+                         .astype(np.int32))
+    x[..., 15] %= 0x3000
+    roots = tl.to_device(tntt._root_powers(k, False), "cpu")
+    whole = tntt._transform_plain(x, k, roots)
+    monkeypatch.setattr(tntt, "PLAIN_CHUNK", 8)
+    assert torch.equal(tntt._transform_plain(x, k, roots), whole)
