@@ -22,6 +22,7 @@ from ..hash.poseidon_ref import (
     poseidon2,
     poseidon3,
 )
+from ..utils.metrics import traced
 
 
 def _load(path_or_dict) -> dict:
@@ -38,6 +39,7 @@ def expected_commitment(values) -> int:
     return int.from_bytes(keccak256(msg)[:31], "big")
 
 
+@traced("witness.load")
 def load_spend_input(path_or_dict):
     d = _load(path_or_dict)
     return {
@@ -57,6 +59,7 @@ def spend_expected_commitment(inp: dict) -> int:
     return expected_commitment([coin, inp["withdrawn"], remaining, inp["extra_commitment"]])
 
 
+@traced("witness.load")
 def load_pob_input(path_or_dict, cfg):
     """Reference-format ProofOfBurn input -> kwargs for pob_forward and
     pob_r1cs_witness as host arrays (one instance; batch_stack batches,
@@ -134,6 +137,7 @@ def batch_stack(instances):
     return {k: np.stack([np.asarray(inst[k]) for inst in instances]) for k in instances[0]}
 
 
+@traced("witness.load")
 def to_device(kwargs: dict, device) -> dict:
     """Host kwargs (load_pob_input, batch_stack) -> int32 tensors on device."""
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(device)

@@ -44,6 +44,7 @@ from ..field.ref import (
     pairing_product_is_one,
 )
 from ..r1cs.builder import ConstraintSystem
+from ..utils.metrics import METRICS, DeviceLaps, lap, launches_since
 from . import bitsum, curve, msm, ntt
 
 _R = (1 << 256) % FR_MOD
@@ -709,17 +710,22 @@ def sparse_matvec_mont(mat, W, n: int):
     return out
 
 
-def compute_h(k: int, mats, W):
+def compute_h(k: int, mats, W, laps: DeviceLaps | None = None):
     """Coset evaluations of A.B - C for a witness batch W (B, nw, 16): (B, n,
     16) canonical limbs on the coset x_j = w_{2n} w_n^j. C on the domain is
-    A.B, so two sparse mat-vecs and six transforms suffice."""
+    A.B, so two sparse mat-vecs and six transforms suffice. Spans "h.matvec"
+    and "h.ntt" (the rest); with laps, their device seconds under
+    "h_matvec_s" and "h_ntt_s"."""
     n = 1 << k
-    aw = sparse_matvec_mont(mats[0], W, n)
-    bw = sparse_matvec_mont(mats[1], W, n)
-    cw = limb.mont_mul(FRS, aw, bw)
-    shift = ntt.domain_root(k + 1)
-    ea, eb, ec = (ntt.coeffs_to_coset_evals(ntt.intt(x, k), k, shift) for x in (aw, bw, cw))
-    return limb.from_mont(FRS, limb.sub(FRS, limb.mont_mul(FRS, ea, eb), ec))
+    with METRICS.span("h.matvec"), lap(laps, "h_matvec_s"):
+        aw = sparse_matvec_mont(mats[0], W, n)
+        bw = sparse_matvec_mont(mats[1], W, n)
+    with METRICS.span("h.ntt"), lap(laps, "h_ntt_s"):
+        cw = limb.mont_mul(FRS, aw, bw)
+        shift = ntt.domain_root(k + 1)
+        ea, eb, ec = (ntt.coeffs_to_coset_evals(ntt.intt(x, k), k, shift)
+                      for x in (aw, bw, cw))
+        return limb.from_mont(FRS, limb.sub(FRS, limb.mont_mul(FRS, ea, eb), ec))
 
 
 def _sync(device):
@@ -762,31 +768,49 @@ def prove_batch(pk: ProvingKey, W, rs=None, timings: dict | None = None):
     plan (uses_plan), with the same proofs as the plain path. Any B: the h
     stage, the MSMs and the host tail go batch_chunk proofs at a time, and a
     proof does not depend on its chunk.
+    Spans (METRICS): "prove_batch" (attrs batch, chunk), one "prove.chunk"
+    per chunk holding compute_h's and msm_stage's, and one
+    "host_tail.finish_proof" per proof.
     With a `timings` dict, the h stage and the MSMs are synchronized and
     their seconds over all chunks stored under "h_s" and "msm_s", and the
-    chunk under "chunk"."""
+    chunk under "chunk"; summed over chunks, the device seconds of the
+    mat-vec, the rest of the h stage, K3 and K5 ("h_matvec_s", "h_ntt_s",
+    "msm_k3_s", "msm_k5_s": CUDA events read once the sums reach the
+    host), the host seconds of finish_proof ("finish_s"), and the kernel
+    launches of the call by kernel ("launches")."""
     B = int(W.shape[0])
     chunk = batch_chunk(pk, B, W.device)
-    proofs, h_s, msm_s = [], 0.0, 0.0
-    for o in range(0, B, chunk):
-        Wc = W[o:o + chunk]
-        t0 = time.perf_counter()
-        h = compute_h(pk.k, pk.mats, Wc)
-        if timings is not None:
-            _sync(W.device)
-            t1 = time.perf_counter()
-        sums = [tuple(c.cpu().numpy() for c in p) if p is not None else None
-                for p in msm_stage(pk, Wc, h)]
-        del h
-        if timings is not None:
-            h_s += t1 - t0
-            msm_s += time.perf_counter() - t1
-        for i in range(int(Wc.shape[0])):
-            si = [tuple(c[i] for c in p) if p is not None else None for p in sums]
-            r, s = rs[o + i] if rs is not None else (None, None)
-            proofs.append(finish_proof(pk, si, r, s))
+    proofs, h_s, msm_s, finish_s = [], 0.0, 0.0, 0.0
+    laps = DeviceLaps(W.device) if timings is not None else None
+    launches0 = dict(_build.LAUNCHES)
+    with METRICS.span("prove_batch", batch=B, chunk=chunk):
+        for o in range(0, B, chunk):
+            with METRICS.span("prove.chunk"):
+                Wc = W[o:o + chunk]
+                t0 = time.perf_counter()
+                h = compute_h(pk.k, pk.mats, Wc, laps)
+                if timings is not None:
+                    _sync(W.device)
+                    t1 = time.perf_counter()
+                sums = [tuple(c.cpu().numpy() for c in p) if p is not None else None
+                        for p in msm_stage(pk, Wc, h, laps)]
+                del h
+                if timings is not None:
+                    h_s += t1 - t0
+                    msm_s += time.perf_counter() - t1
+                    laps.read()
+                for i in range(int(Wc.shape[0])):
+                    si = [tuple(c[i] for c in p) if p is not None else None for p in sums]
+                    r, s = rs[o + i] if rs is not None else (None, None)
+                    t2 = time.perf_counter()
+                    with METRICS.span("host_tail.finish_proof"):
+                        proofs.append(finish_proof(pk, si, r, s))
+                    finish_s += time.perf_counter() - t2
     if timings is not None:
-        timings.update(h_s=h_s, msm_s=msm_s, chunk=chunk)
+        timings.update(h_s=h_s, msm_s=msm_s, chunk=chunk,
+                       **{k: laps.totals.get(k, 0.0)
+                          for k in ("h_matvec_s", "h_ntt_s", "msm_k3_s", "msm_k5_s")},
+                       finish_s=finish_s, launches=launches_since(launches0))
     return proofs
 
 
@@ -800,12 +824,14 @@ def prove(pk: ProvingKey, witness_limbs, r: int | None = None, s: int | None = N
     return prove_batch(pk, W.to(dev)[None], rs=[(r, s)])[0]
 
 
-def msm_stage(pk: ProvingKey, W, h):
+def msm_stage(pk: ProvingKey, W, h, laps: DeviceLaps | None = None):
     """The five MSMs of a batch on W's device, left there: (A, B1, B2, L, H)
     sums, (B,) Jacobian each (L is None for a key without private wires on
     the plain path). On the planned path (uses_plan) A, B1 and L come from
     one K5 call on G1 and B2 from one on G2; H, and every MSM of the plain
-    path, is a K3 call. On the card nothing is read back to the host."""
+    path, is a K3 call. On the card nothing is read back to the host. Spans
+    "msm.k5" and "msm.k3", one per call; with laps, their device seconds
+    under "msm_k5_s" and "msm_k3_s"."""
     npub = pk.num_public
     scalars = {"a_query": W, "b1_query": W, "b2_query": W, "l_query": W[:, npub + 1:],
                "h_query": h}
@@ -813,7 +839,8 @@ def msm_stage(pk: ProvingKey, W, h):
     if uses_plan(pk):
         for group, names in PLAN_GROUPS:
             g = getattr(pk.plan, group)
-            sums = bitsum.bitsum_msm(group, g.pts, g.bit_idx, g.full_idx, g.counts, W)
+            with METRICS.span("msm.k5"), lap(laps, "msm_k5_s"):
+                sums = bitsum.bitsum_msm(group, g.pts, g.bit_idx, g.full_idx, g.counts, W)
             planned.update({q: tuple(c[i] for c in sums) for i, q in enumerate(names)})
 
     def one(q, group):
@@ -821,7 +848,9 @@ def msm_stage(pk: ProvingKey, W, h):
             return planned[q]
         if q == "l_query" and not int(pk.l_query[0].shape[0]):
             return None
-        return msm.msm_batched(group, getattr(pk, q), scalars[q], pk.bases and pk.bases[q])
+        with METRICS.span("msm.k3"), lap(laps, "msm_k3_s"):
+            return msm.msm_batched(group, getattr(pk, q), scalars[q],
+                                   pk.bases and pk.bases[q])
 
     return [one(q, g) for q, g in MSM_QUERIES]
 

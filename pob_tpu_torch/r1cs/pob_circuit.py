@@ -26,6 +26,7 @@ from ..hash.poseidon_params import (
     POSEIDON_COIN_PREFIX,
     POSEIDON_NULLIFIER_PREFIX,
 )
+from ..utils.metrics import traced
 from .builder import ConstraintSystem
 from .gadgets_cs import (
     bits_lc,
@@ -663,6 +664,7 @@ def _split_axis(blocks: dict, src: dict, axis: int, names) -> None:
             blocks[nm + k] = v.select(axis, i)
 
 
+@traced("witness.trace")
 def pob_r1cs_witness(cfg: PoBConfig, **kw):
     """Full witness blocks for a batch of PoB instances. kw: pob_forward's
     arguments as int32 tensors on one device (harness.inputs.to_device).

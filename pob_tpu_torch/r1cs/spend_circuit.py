@@ -20,6 +20,7 @@ from ..field.limb import FR
 from ..field.ref import FR_MOD
 from ..hash import keccak as kdev
 from ..hash.poseidon_params import POSEIDON_COIN_PREFIX
+from ..utils.metrics import METRICS, traced
 from .builder import ConstraintSystem
 from .gadgets_cs import (
     constrain_decomposition,
@@ -112,6 +113,7 @@ def build_spend_cs() -> ConstraintSystem:
     return cs
 
 
+@traced("witness.trace")
 def spend_witness(burn_key, balance, withdrawn, extra):
     """Witness blocks for a batch of spend instances.
 
@@ -127,17 +129,18 @@ def spend_witness(burn_key, balance, withdrawn, extra):
     pr_blocks, remaining = wit.poseidon_trace(torch.stack([prefix, burn_key, diff], -2))
 
     # keccak message: 4 BE 32-byte values + 0x01 ... 0x80 padding
-    msg = torch.cat(
-        [limb.limbs_to_be_bytes(v) for v in (coin, withdrawn, remaining, extra)]
-        + [torch.zeros(batch + (8,), dtype=I32, device=dev)], -1)
-    msg[..., 128] = 0x01
-    msg[..., 135] = 0x80
-    blk_lo, blk_hi = kdev.bytes_to_blocks(msg, 1)  # (..., 1, 17)
-    pad = torch.zeros(batch + (8,), dtype=torch.int64, device=dev)
-    lo = torch.cat([blk_lo[..., 0, :], pad], -1)
-    hi = torch.cat([blk_hi[..., 0, :], pad], -1)
-    kblocks, (flo, fhi) = wit.keccak_f_trace(lo, hi)
-    digest = kdev.state_to_digest(flo, fhi)
+    with METRICS.span("witness.keccak"):
+        msg = torch.cat(
+            [limb.limbs_to_be_bytes(v) for v in (coin, withdrawn, remaining, extra)]
+            + [torch.zeros(batch + (8,), dtype=I32, device=dev)], -1)
+        msg[..., 128] = 0x01
+        msg[..., 135] = 0x80
+        blk_lo, blk_hi = kdev.bytes_to_blocks(msg, 1)  # (..., 1, 17)
+        pad = torch.zeros(batch + (8,), dtype=torch.int64, device=dev)
+        lo = torch.cat([blk_lo[..., 0, :], pad], -1)
+        hi = torch.cat([blk_hi[..., 0, :], pad], -1)
+        kblocks, (flo, fhi) = wit.keccak_f_trace(lo, hi)
+        digest = kdev.state_to_digest(flo, fhi)
     commitment = torch.zeros(batch + (32,), dtype=I32, device=dev)
     commitment[..., 1:] = digest[..., :31]
     commitment = limb.be_bytes_to_limbs(commitment)
@@ -166,6 +169,7 @@ def spend_witness(burn_key, balance, withdrawn, extra):
     return out
 
 
+@traced("witness.assemble")
 def assemble_witness(cs: ConstraintSystem, tensors: dict):
     """Blocks dict -> (batch, num_wires, 16) int32 witness buffer (wire 0 = 1)."""
     pub = tensors["pub"]

@@ -12,6 +12,7 @@ from ..field.limb import FR
 from ..hash import keccak as kdev
 from ..hash import poseidon
 from ..hash.keccak import _CHI1, _CHI2, _RC_HI, _RC_LO, _ROT, _SRC, _idx, _not32, _rotl64
+from ..utils.metrics import traced
 
 I32 = torch.int32
 
@@ -66,6 +67,7 @@ def keccak_f_trace(lo, hi):
     return blocks, (lo, hi)
 
 
+@traced("witness.poseidon")
 def poseidon_trace(input_limbs):
     """Poseidon over (..., n, 16) canonical limb inputs, exporting the s-box
     intermediates. Returns (blocks, out_limbs) with blocks x2/x4/x5 of shape
@@ -145,6 +147,7 @@ def _dynamic_absorb_trace(padded, n_blocks: int):
     return blocks, torch.stack(digests, -2)
 
 
+@traced("witness.keccak")
 def keccak_static_trace(msg_bytes, n_blocks: int):
     """Witness twin of a static-length keccak chain: msg_bytes
     (..., n_blocks*136) already padded. Returns (blocks, digest_bits) where
@@ -154,6 +157,7 @@ def keccak_static_trace(msg_bytes, n_blocks: int):
     return blocks, digests[..., -1, :]
 
 
+@traced("witness.keccak")
 def keccak_bytes_trace(data, in_len, max_blocks: int):
     """Witness twin of gadgets_cs.keccak_bytes_cs. data: (..., max_bytes)
     int32 bytes; in_len: (...,) int tensor. Returns (blocks, digest_bits)

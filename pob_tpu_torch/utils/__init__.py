@@ -1,2 +1,2 @@
-"""Shared utilities: per-stage metrics and the timing harness (the
-counterparts of pob_tpu/utils/{metrics,profiling}.py)."""
+"""Shared utilities: per-stage metrics, spans and launch counts (the
+counterpart of pob_tpu/utils/metrics.py)."""

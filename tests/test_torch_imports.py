@@ -32,7 +32,7 @@ def test_port_files_exist():
                  "harness/generate.py", "harness/rlp_host.py", "harness/pow_grind.py",
                  "circuits/spend.py", "dist/__init__.py", "dist/mesh.py", "dist/ntt_sharded.py",
                  "dist/msm_sharded.py", "dist/prove_sharded.py", "dist/pipeline.py",
-                 "utils/__init__.py", "utils/metrics.py", "utils/profiling.py"):
+                 "utils/__init__.py", "utils/metrics.py"):
         assert ROOT / "pob_tpu_torch" / name in FILES, name
 
 

@@ -1,4 +1,4 @@
-"""The port's utils (metrics, profiling) and the bytesops helpers it gained
+"""The port's metrics and the bytesops helpers it gained
 with the multi-device slice, held against pob_tpu's on the CPU."""
 
 import jax.numpy as jnp
@@ -8,10 +8,8 @@ import torch
 
 from pob_tpu.gadgets import bytesops as jb
 from pob_tpu.utils import metrics as jm
-from pob_tpu.utils import profiling as jp
 from pob_tpu_torch.gadgets import bytesops as tb
 from pob_tpu_torch.utils import metrics as tm
-from pob_tpu_torch.utils import profiling as tp
 
 torch.set_num_threads(1)
 
@@ -57,24 +55,6 @@ def test_stage_stat_equals_pob_tpu():
     assert (a.count, a.total_s, a.min_s, a.max_s, a.mean_s) == (
         b.count, b.total_s, b.min_s, b.max_s, b.mean_s)
     assert tm.StageStat().mean_s == jm.StageStat().mean_s == 0.0
-
-
-def test_bench_fn_like_pob_tpu():
-    calls = []
-
-    def fn(x, scale=1):
-        calls.append(1)
-        return (x * scale, [x])
-
-    got = tp.bench_fn("mul", fn, torch.arange(4), iters=3, items_per_iter=5, warmup=2, scale=2)
-    want = jp.bench_fn("mul", lambda x, scale=1: (x * scale, [x]), jnp.arange(4), iters=3,
-                       items_per_iter=5, warmup=2, scale=2)
-    assert len(calls) == 5
-    assert (got.name, got.iters, got.items_per_iter) == (want.name, want.iters,
-                                                         want.items_per_iter)
-    assert got.seconds_per_iter > 0
-    assert got.items_per_sec == pytest.approx(5 / got.seconds_per_iter)
-    assert str(got).startswith("mul: ") and str(got).endswith(" items/s")
 
 
 def test_bytesops_helpers_equal_pob_tpu():
